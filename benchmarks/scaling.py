@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Restart-throughput scaling across a virtual device mesh.
 
-Real multi-host TPU hardware is not available in this environment, so this
-measures the *structural* scaling of the sharded restart pipeline on N
-virtual CPU devices (the same GSPMD program that runs on a pod slice; only
-the interconnect differs).  Run:
+This measures the *structural* scaling of the sharded restart pipeline on N
+virtual CPU devices (the same GSPMD program that runs across GPUs; only the
+interconnect differs).  It is not a device measurement.  Run:
 
     python benchmarks/scaling.py
 
@@ -60,7 +59,7 @@ def collective_report(n_devices=8):
     bytes).  The restart axis is embarrassingly parallel, so the entire
     cross-device traffic of a solve is the final best-point reduction —
     this makes that claim checkable from the compiled HLO instead of
-    asserted (pod-scale de-risking; the byte counts are interconnect-
+    asserted (multi-device de-risking; the byte counts are interconnect-
     independent).
     """
     import re
@@ -117,12 +116,12 @@ def collective_report(n_devices=8):
 
 def collective_report_2d(m_big=512):
     """Compiled-HLO collective inventory of the 2-D (restarts x
-    constraints) ADMM step at a large m (VERDICT r3 weak #7: the
+    constraints) ADMM step at a large m (the
     constraint-axis psum traffic had no measured byte count).  The
     collectives live inside the phase while_loops, so the inventory is
     per-ITERATION traffic; a throughput point on the virtual mesh is
     printed alongside (virtual-mesh wall clock is host-core-bound — the
-    bytes, not the speedup, are the pod-scaling evidence)."""
+    bytes, not the speedup, are the multi-device evidence)."""
     import re
     from qcqp_tpu.parallel.mesh2d import make_mesh_2d, improve_admm_2d
 

@@ -2,7 +2,7 @@
 """Boolean least squares:  minimize ||Ax - b||^2  s.t.  x_i^2 == 1.
 
 Mirrors the reference example (reference: examples/boolean_least_squares.py)
-on the TPU-native stack: same problem, same method chains, plus the batched
+on the batched JAX stack: same problem, same method chains, plus the batched
 multi-restart solve the reference lacks.
 """
 import numpy as np
@@ -48,7 +48,7 @@ f_admm, v_admm = qcqp.improve(qt.ADMM, phase1=False)
 print("coord-descent then consensus-ADMM   f=%.3f  maxviol=%.3f"
       % (f_admm, v_admm))
 
-# TPU-native extra: 256 SDR-sampled restarts in one batched solve
+# Extra over the reference: 256 SDR-sampled restarts in one batched solve
 f_best, v_best = qcqp.solve(num_restarts=256, suggest=qt.SDR,
                             improve=qt.COORD_DESCENT)
 print("Best of 256 parallel restarts: objective %.3f, violation %.3f"

@@ -1,13 +1,13 @@
-"""qcqp_tpu — TPU-native Suggest-and-Improve framework for nonconvex QCQPs.
+"""qcqp_tpu — Suggest-and-Improve framework for nonconvex QCQPs in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of cvxgrp/qcqp
 (Park & Boyd, "General Heuristics for Nonconvex Quadratically Constrained
 Quadratic Programming"): quadratic problems are canonicalized to stacked
-(P, q, r) tensors resident in HBM, Suggest methods (random / spectral / SDR
+(P, q, r) tensors resident in device memory, Suggest methods (random / spectral / SDR
 with a first-order in-JAX SDP solver) and Improve methods (two-phase
 coordinate descent, consensus ADMM, penalty convex-concave, augmented-
 Lagrangian polish) run as jitted fixed-point loops, and thousands of restarts
-vmap per chip and shard across a device mesh.
+vmap per device and shard across a device mesh.
 
 Public API mirrors the reference surface (reference: qcqp/__init__.py:27-29):
 `QCQP` handler + method constants, plus the modeling layer that replaces CVXPY.
@@ -22,6 +22,18 @@ import jax
 # explicit float32/bfloat16 tensors regardless of this flag.
 if os.environ.get("QCQP_TPU_X64", "1") != "0":
     jax.config.update("jax_enable_x64", True)
+
+
+def compile_cache_dir() -> str:
+    """JAX_COMPILATION_CACHE_DIR if set (JAX reads it itself), else a fixed
+    .jax_cache/ at the repository root."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+
+
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
 
 from .settings import (  # noqa: E402
     RANDOM, SDR, SPECTRAL, COORD_DESCENT, ADMM, DCCP, IPOPT,

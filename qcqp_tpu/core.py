@@ -4,7 +4,7 @@ The reference keeps the canonical problem as a Python list of per-constraint
 ``QuadraticFunction`` objects holding scipy sparse matrices
 (reference: qcqp/utilities.py:41-146).  Here the whole problem is a single
 pytree of stacked dense device tensors so that every evaluation is one batched
-matmul on the MXU and the constraint axis can be vmapped/sharded:
+matmul and the constraint axis can be vmapped/sharded:
 
     P : (m+1, n, n)  symmetric; row 0 is the objective, rows 1..m constraints
     q : (m+1, n)

@@ -649,7 +649,7 @@ class Problem:
 def canonicalize(prob: Problem, dtype=np.float64):
     """Problem -> (QCQPForm, VarLayout, maximize_flag).
 
-    The TPU-native analog of get_qcqp_form (reference: qcqp/utilities.py:318-347):
+    The tensor-form analog of get_qcqp_form (reference: qcqp/utilities.py:318-347):
     instead of a list of sparse QuadraticFunctions it emits one stacked dense
     tensor batch ready for jnp residence.
     """

@@ -1,35 +1,38 @@
-"""Whole-solve coordinate-descent mega-kernels: all sweeps in one pallas_call.
+"""Two-phase coordinate descent over a block of restarts, with no gradient cache.
 
-The fused per-coordinate kernel (kernels/onevar_pallas.py) still pays, per
-coordinate step, one kernel launch plus an XLA segment that slices/updates the
-(R, m+1, n) gradient cache G in HBM — ~2x208 MB of HBM traffic per coordinate
-at the bench shape, times n x sweeps segments.  These kernels instead run the
-*entire* CD loop (sweep while-loop, Gauss-Seidel coordinate fori, slack
-bisection / candidate argmin) for a 128-restart lane tile inside a single
-pallas_call:
+The batched XLA improve (solvers/coord_descent.py) carries the (R, m+1, n)
+gradient cache G = P x through device memory and rewrites it on every
+coordinate step, and it launches a few kernels per bisection trip of every
+coordinate.  Here the *entire* improve — sweep while-loop, Gauss-Seidel
+coordinate loop, slack bisection (phase 1, reference: qcqp/qcqp.py:101-148)
+and candidate argmin (phase 2, qcqp/qcqp.py:152-178, with the feasibility
+gate of qcqp.py:189-190 applied per restart) — is one body over a block of
+restarts:
 
-  * the problem tensors P (m+1, n, n), the k-sliced layout P1 (n, m+1, n)
-    with P1[k] = P[:, :, k] (so a *dynamic ref slice* yields the coordinate's
-    restriction rows), q^T and r live in VMEM for the whole solve
-    (~4 MB at n=100, m=50 — comfortably under the ~16 MB/core budget);
-  * there is no gradient cache at all: the per-coordinate restriction
-    coefficients come from one small MXU matmul Gk = P1[k] @ x per coordinate
-    (symmetry P[i,:,k] == P[i,k,:] makes the same slab serve both uses), and
-    the per-constraint scalars t2, qk from one-hot matvecs — dynamic *lane*
-    indexing, which Mosaic lacks, is never needed;
-  * x (n, R) and F (m+1, R) are plain loop-carry values; F is refreshed from
-    scratch once per sweep (drift control, 51 small matmuls) and updated in
-    closed form per coordinate move;
-  * the equality pattern is static (eq_idx), reusing the split candidate
-    sweep of onevar_pallas.feasible_point_rows_split.
+  * there is no gradient cache: the restriction of every f_i to coordinate k
+    comes from one product Gk = x @ PT[k] (PT[k, j, i] = P[i, k, j]; the
+    symmetry of P lets the same slab serve both uses), and F = f_i(x) is
+    refreshed from scratch once per sweep and updated in closed form per
+    coordinate move;
+  * rows are masked, never gathered: row 0 (the objective) and padded rows
+    are switched off by a constraint mask, and the reversed rows of
+    equalities by an equality mask;
+  * each coordinate's resolved slack bracket is carried across sweeps
+    (the warm start of onevar_batch._bisect_accept).
 
-`phase1_sweeps` runs phase 1 (feasibility, slack bisection per coordinate;
-reference: qcqp/qcqp.py:101-148).  `two_phase_sweeps` additionally runs
-phase 2 (objective descent over the ~feasible set at the entry-violation
-slack; reference: qcqp/qcqp.py:152-178 with the feasibility gate of
-qcqp.py:189-190 applied per lane) in the same pallas_call, so the whole
-two-phase improve never leaves VMEM.  Sweep termination is per 128-lane tile
-instead of per batch — a tile whose lanes all converge stops early.  float32.
+One Pallas program (backend="triton") runs the body for a block of
+BLOCK_R = 32 restarts (16 and 64 measured slower; PERF.md): x, F and the warm brackets are loop values, the PT slab
+of each coordinate is read from device memory (the padded PT is 4 MB at
+n=100, m=50, so it stays in L2), and the candidate sweeps stream over the
+rows.  Every product runs in full float32 (precision=HIGHEST, IEEE on this
+route): the slack bisection works at tol=1e-4 and TF32 would add errors of
+about 1e-3.  (The same body traced by XLA over the whole batch measured
+1.45x slower at the bench shape; PERF.md.)
+
+Layout: restarts on axis 0; coordinates and constraint rows on axis 1,
+zero-padded to powers of two (at least 16): n=100 -> 128, m+1=51 -> 64.
+Padded coordinates are never visited and padded rows are inactive.  Sweep
+termination is per block.  float32.
 """
 
 from __future__ import annotations
@@ -38,285 +41,267 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from .onevar_pallas import (LANES, _bisect_accept, _canon_leq,
-                            feas_matrix_from_canon,
-                            feasible_point_rows_split)
+from .onevar_batch import _bisect_accept, _canon_leq, _g_form
 
 _HP = jax.lax.Precision.HIGHEST
+_F32_MAX = 3.0e38
+BLOCK_R = 32
 
 
-def _make_ctx(P_ref, P1_ref, qT_ref, r_ref, *, n: int, m: int,
-              eq_idx: tuple):
-    """Shared per-kernel helpers: F refresh, violations, and the coordinate
-    restriction (t2, t1, t0) of every f_i (reference: qcqp/utilities.py:99-105,
-    derived in closed form from the carried F)."""
+def _pow2(k: int) -> int:
+    return max(16, 1 << (int(k) - 1).bit_length())
+
+
+def _col(A, sel):
+    """A[:, j] for the one-hot column mask sel (1, J), as an (R,) vector."""
+    return jnp.sum(jnp.where(sel, A, 0.0), axis=1)
+
+
+def _make_ctx(PT, qk3, dg, rr, cm, eqm, *, n: int):
+    """Per-body helpers over arrays or refs: F refresh, row violations and
+    the coordinate restriction (t2, t1, t0) of every f_i (reference:
+    qcqp/utilities.py:99-105, in closed form from the carried F)."""
     f32 = jnp.float32
-    qT = qT_ref[:]                                   # (m+1, n)
-    r = r_ref[:]                                     # (m+1, 1)
-    iota_n = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
+    n_p, k_p = PT.shape[0], PT.shape[2]
+    QT = qk3[...].reshape(n_p, k_p)                  # QT[j, i] = q[i, j]
+    r = rr[...]                                      # (1, k_p)
+    cmask = cm[...] > 0.5                            # constraint rows
+    eqmask = eqm[...] > 0.5                          # equality rows
+    iota_n = jax.lax.broadcasted_iota(jnp.int32, (1, n_p), 1)
 
-    def refresh_F(x):
-        rows = []
-        for i in range(m + 1):
-            Yi = jnp.dot(P_ref[i], x, preferred_element_type=f32,
-                         precision=_HP)              # (n, R)
-            fi = jnp.sum(x * Yi, axis=0)[None, :]
-            fi = fi + jnp.dot(qT[i:i + 1], x, preferred_element_type=f32,
-                              precision=_HP) + r[i:i + 1, 0:1]
-            rows.append(fi)
-        return jnp.concatenate(rows, axis=0)         # (m+1, R)
+    def dot(a, b):
+        return jnp.dot(a, b, precision=_HP, preferred_element_type=f32)
 
-    # static eq row mask built from iota (Pallas kernels cannot capture
-    # array constants)
-    iota_m = jax.lax.broadcasted_iota(jnp.int32, (m, 1), 0)
-    eqm = jnp.zeros((m, 1), f32)
-    for j in eq_idx:
-        eqm = jnp.maximum(eqm, (iota_m == j).astype(f32))
+    def refresh_F(x):                                # (R, n_p) -> (R, k_p)
+        def body(k, F):
+            return F + _col(x, iota_n == k)[:, None] * dot(x, PT[k])
+        return jax.lax.fori_loop(0, n, body, dot(x, QT) + r)
 
-    def viols_from_F(F):
-        vals = F[1:]                                 # (m, R)
-        return jnp.where(eqm > 0.5, jnp.abs(vals), jnp.maximum(vals, 0.0))
+    def viol_rows(F):
+        v = jnp.where(eqmask, jnp.abs(F), jnp.maximum(F, 0.0))
+        return jnp.where(cmask, v, 0.0)
 
     def restriction(k, x, F):
-        onehot = (iota_n == k).astype(f32)           # (n, 1)
-        xk = jnp.sum(jnp.where(onehot > 0.5, x, 0.0), axis=0)        # (R,)
-        P1k = P1_ref[k]                              # (m+1, n) = P[:, :, k]
-        Gk = jnp.dot(P1k, x, preferred_element_type=f32,
-                     precision=_HP)                  # (m+1, R)
-        t2 = jnp.dot(P1k, onehot, preferred_element_type=f32,
-                     precision=_HP)                  # (m+1, 1) = P[:, k, k]
-        qk = jnp.dot(qT, onehot, preferred_element_type=f32,
-                     precision=_HP)                  # (m+1, 1)
-        t1 = 2.0 * (Gk - t2 * xk[None, :]) + qk
-        t0 = F - xk[None, :] * (2.0 * Gk + qk) + t2 * xk[None, :] ** 2
-        return onehot, xk, t2, t1, t0
+        sel = iota_n == k
+        xk = _col(x, sel)                            # (R,)
+        Gk = dot(x, PT[k])                           # (R, k_p) = (P_i x)_k
+        qk = qk3[k]                                  # (1, k_p) = q[:, k]
+        xc = xk[:, None]
+        t1 = 2.0 * (Gk - dg[k] * xc) + qk
+        t2 = jnp.broadcast_to(dg[k], t1.shape)       # P[:, k, k]
+        t0 = F - xc * (2.0 * Gk + qk) + t2 * xc ** 2
+        act = ((t2 != 0.0) | (t1 != 0.0)) & cmask
+        return sel, xk, t2, t1, t0, act, act & eqmask
 
-    return refresh_F, viols_from_F, restriction
+    return refresh_F, viol_rows, restriction, k_p
 
 
-def _take_rows(arr, idx):
-    """Static-index row gather (Mosaic has no dynamic sublane gather)."""
-    return jnp.concatenate([arr[j:j + 1] for j in idx], axis=0)
+def _block(p, q, c, act, tol):
+    """Canonical rows of p x^2 + q x + c <= 0 (see onevar_batch._canon_leq)
+    with inactive rows neutralized: (s, a2, b2) in the signed-gap form, the
+    left-endpoint candidates, and the raw bounds for phase 2."""
+    base, sgn, a, b, es, cand = _canon_leq(p, q, c, tol)
+    s, a2, b2 = _g_form(jnp.where(act, base, 1.0), jnp.where(act, sgn, 0.0),
+                        a, b)
+    return s, a2, b2, jnp.where(act, cand, jnp.nan), a, b, es, act
 
 
-def _phase1_loop(x0, ctx, *, n: int, m: int, eq_idx: tuple, num_iters: int,
-                 tol: float, viol_tol: float, n_bisect: int, wbs_ref=None):
-    """Full phase-1 CD (reference: qcqp/qcqp.py:101-148) on an (n, R) tile.
+def _gap(blk, cf):
+    s, a2, b2 = blk[:3]
+    return s * jnp.maximum(a2 - cf, cf - b2)
 
-    wbs_ref: optional (n, 2, R) VMEM scratch carrying each coordinate's
-    resolved slack bracket (certified-infeasible floor, accepted slack)
-    across sweeps (round 5 / VERDICT r4 #2): sweep t+1's bisection starts
-    from a narrow window around sweep t's bracket instead of the full
-    [-tol, viol) range — the trip count, not the per-trip ops, is the
-    mega-kernel's remaining cost (BASELINE.md r4 frontier).  The
-    escalation path inside _bisect_accept keeps the acceptance semantics
-    identical; only trip counts change."""
+
+def _feas_of(blocks, c):
+    """Feasibility (R,) of one candidate per restart against every row."""
+    cf = jnp.clip(c, -_F32_MAX, _F32_MAX)[:, None]
+    g = _gap(blocks[0], cf)
+    for blk in blocks[1:]:
+        g = jnp.maximum(g, _gap(blk, cf))
+    return (jnp.max(g, axis=1) <= 0.0) & ~jnp.isnan(c)
+
+
+def _stream(tiles, visit, st):
+    """Visit the candidates of each (R, J) tile row by row, in order."""
+    J = tiles[0].shape[1]
+    iota = jax.lax.broadcasted_iota(jnp.int32, (1, J), 1)
+    for T in tiles:
+        st = jax.lax.fori_loop(
+            0, J, lambda j, st, T=T: visit(_col(T, iota == j), st), st)
+    return st
+
+
+def _witness(blocks, xk):
+    """Phase-1 probe: the feasible left-endpoint candidate nearest xk, else
+    the first feasible one (same order and tie-break as
+    onevar_batch._feasible_point_from_canon).  Returns (witness, exists)."""
+    R = xk.shape[0]
     f32 = jnp.float32
-    refresh_F, viols_from_F, restriction = ctx
-    R = x0.shape[-1]
-    e = len(eq_idx)
-    if wbs_ref is not None:
-        wbs_ref[:] = jnp.full((n, 2, R), jnp.inf, f32)
+    inf = float("inf")
+
+    def visit(c, st):
+        bd, bx, fx, ex = st
+        f = _feas_of(blocks, c)
+        d = jnp.where(f, jnp.abs(c - xk), inf)
+        d = jnp.where(jnp.isnan(d), inf, d)
+        better = d < bd
+        return (jnp.where(better, d, bd), jnp.where(better, c, bx),
+                jnp.where(f & (ex < 0.5), c, fx),
+                jnp.maximum(ex, f.astype(f32)))
+
+    nan = jnp.full((R,), jnp.nan, f32)
+    st = (jnp.full((R,), inf, f32), nan, nan, jnp.zeros((R,), f32))
+    st = _stream([b[3] for b in blocks], visit, st)
+    bd, bx, fx, ex = visit(jnp.full((R,), -inf, f32), st)
+    return jnp.where(bd < inf, bx, fx), ex > 0.5
+
+
+def _phase1_loop(x0, ctx, *, n: int, num_iters: int, tol: float,
+                 viol_tol: float, n_bisect: int):
+    """Full phase-1 CD (reference: qcqp/qcqp.py:101-148) on an (R, n_p)
+    block, with each coordinate's bracket (certified-infeasible floor,
+    accepted slack) warm-starting its next sweep's bisection."""
+    f32 = jnp.float32
+    refresh_F, viol_rows, restriction, k_p = ctx
+    R, n_p = x0.shape
 
     def coord_body(k, carry):
-        x, F, alive, changed = carry
-        onehot, xk, t2, t1, t0 = restriction(k, x, F)
-
-        t2c = jnp.broadcast_to(t2[1:], (m, R))
-        t1c, t0c = t1[1:], t0[1:]
-        act = ((t2c != 0.0) | (t1c != 0.0)).astype(f32)
-
-        viol_rows = viols_from_F(F)
-        viol = jnp.max(jnp.where(act > 0.5, viol_rows, 0.0), axis=0)  # (R,)
-
-        if e:
-            p2, q2, r2, act2 = (_take_rows(t2c, eq_idx),
-                                _take_rows(t1c, eq_idx),
-                                _take_rows(t0c, eq_idx),
-                                _take_rows(act, eq_idx))
-        else:
-            p2 = q2 = r2 = act2 = None
+        x, F, wlo, whi, alive, changed = carry
+        sel, xk, t2, t1, t0, act, act2 = restriction(k, x, F)
+        viol = jnp.max(jnp.where(act, viol_rows(F), 0.0), axis=1)
 
         def feasible_point(s):
-            return feasible_point_rows_split(t2c, t1c, t0c, act, p2, q2, r2,
-                                             act2, xk, s, tol)
+            sb = s[:, None]
+            return _witness([_block(t2, t1, t0 - sb, act, tol),
+                             _block(-t2, -t1, -t0 - sb, act2, tol)], xk)
 
         def viol_of(v):
-            vb = v[None, :]
-            val = (t2c * vb + t1c) * vb + t0c
-            w = jnp.max(jnp.where(act > 0.5, jnp.maximum(val, 0.0), 0.0),
-                        axis=0)
-            if e:
-                val2 = (p2 * vb + q2) * vb + r2
-                w2 = jnp.max(
-                    jnp.where(act2 > 0.5, jnp.maximum(-val2, 0.0), 0.0),
-                    axis=0)
-                w = jnp.maximum(w, w2)
-            return w
+            vb = v[:, None]
+            val = (t2 * vb + t1) * vb + t0
+            w = jnp.where(act, jnp.maximum(val, 0.0), 0.0)
+            w2 = jnp.where(act2, jnp.maximum(-val, 0.0), 0.0)
+            return jnp.max(jnp.maximum(w, w2), axis=1)
 
-        if wbs_ref is not None:
-            wk = wbs_ref[k]                          # (2, R)
-            warm = (wk[0], wk[1])
-        else:
-            warm = None
-        v, (wlo, whi) = _bisect_accept(feasible_point, xk, viol, tol,
-                                       viol_tol, n_bisect, viol_of=viol_of,
-                                       warm=warm)
-        if wbs_ref is not None:
-            wbs_ref[k] = jnp.where(alive[None, :] > 0.5,
-                                   jnp.stack([wlo, whi]), wk)
+        v, (nlo, nhi) = _bisect_accept(
+            feasible_point, xk, viol, tol, viol_tol, n_bisect,
+            viol_of=viol_of, warm=(_col(wlo, sel), _col(whi, sel)))
+        upd = sel & (alive[:, None] > 0.5)
+        wlo = jnp.where(upd, nlo[:, None], wlo)
+        whi = jnp.where(upd, nhi[:, None], whi)
         v = jnp.where(alive > 0.5, v, xk)
         accept = (v != xk).astype(f32)
-        F = t2 * v[None, :] ** 2 + t1 * v[None, :] + t0
-        x = jnp.where(onehot > 0.5, v[None, :], x)
-        return x, F, alive, jnp.maximum(changed, accept)
+        vc = v[:, None]
+        F = t2 * vc ** 2 + t1 * vc + t0
+        x = jnp.where(sel, vc, x)
+        return x, F, wlo, whi, alive, jnp.maximum(changed, accept)
 
     def sweep_cond(c):
-        x, F, t, viol_last, changed = c
-        alive = ((viol_last >= viol_tol).astype(f32)
-                 * changed)
+        x, F, wlo, whi, t, viol_last, changed = c
+        alive = (viol_last >= viol_tol).astype(f32) * changed
         return (t < num_iters) & (jnp.max(alive) > 0.5)
 
     def sweep_body(c):
-        x, F, t, viol_last, changed = c
+        x, F, wlo, whi, t, viol_last, changed = c
         F = refresh_F(x)                             # drift control
         alive = (viol_last >= viol_tol).astype(f32) * changed
-        x, F, _, changed_new = jax.lax.fori_loop(
-            0, n, coord_body, (x, F, alive, jnp.zeros((R,), f32)))
-        viol = jnp.max(viols_from_F(F), axis=0, initial=0.0)
-        # (A freeze-retry guard — one cold sweep with cleared warm state
-        # before a lane's no-change freeze — was measured and REJECTED:
-        # a single retrying lane keeps its whole 128-lane tile sweeping,
-        # costing 40% throughput (37301 -> 21951 r/s) while the
-        # feasibility differences it targeted proved to be trajectory-
-        # reshuffle noise, see tests/test_cd_sweep_pallas.py margins.)
+        x, F, wlo, whi, _, changed_new = jax.lax.fori_loop(
+            0, n, coord_body, (x, F, wlo, whi, alive, jnp.zeros((R,), f32)))
+        viol = jnp.max(viol_rows(F), axis=1)
         changed = jnp.where(alive > 0.5, changed_new, changed)
-        return x, F, t + 1, viol, changed
+        return x, F, wlo, whi, t + 1, viol, changed
 
-    init = (x0, jnp.zeros((m + 1, R), f32), jnp.int32(0),
+    inf_np = jnp.full((R, n_p), jnp.inf, f32)
+    init = (x0, jnp.zeros((R, k_p), f32), inf_np, inf_np, jnp.int32(0),
             jnp.full((R,), jnp.inf, f32), jnp.ones((R,), f32))
-    x, _, _, _, _ = jax.lax.while_loop(sweep_cond, sweep_body, init)
-    return x
+    return jax.lax.while_loop(sweep_cond, sweep_body, init)[0]
 
 
-def _phase2_select(blocks, xk, p0, q0r, r0r):
+def _phase2_select(blocks, xk, p0, q0, r0):
     """Argmin of the restricted objective p0 x^2 + q0 x + r0 over the
-    candidate boundary points of the canonical blocks, the unconstrained
+    candidate boundary points of the canonical rows, the unconstrained
     vertex, and +-inf (reference: qcqp/utilities.py:241-288, candidate-point
-    formulation of kernels/onevar.onevar_qcqp_impl with proximal tie-break).
-
-    blocks: canonical rows at the fixed phase-2 slack; p0/q0r/r0r (1, R) —
-    p0 must be a materialized (1, R) vector, not a (1, 1) slice (Mosaic
-    cannot broadcast both sublanes and lanes in one op when it meets the
-    (C, R) candidate matrix).  Returns (v (R,), any_feas (R,))."""
+    formulation of kernels/onevar.onevar_qcqp_impl with proximal tie-break:
+    the lowest value, then the nearest to xk, then the first in order).
+    Returns (v (R,), any_feas (R,))."""
     f32 = jnp.float32
     R = xk.shape[0]
-    nanv = jnp.nan
-
+    inf = float("inf")
     safe_p0 = jnp.where(p0 > 0.0, p0, 1.0)
-    vertex = jnp.where(p0 > 0.0, -q0r / (2.0 * safe_p0), nanv)    # (1, R)
-    cand_rows = [vertex]
-    for (base, sgn, a, b, es, _) in blocks:
-        # _canon_leq pre-folds the tangency slop into a/b for the membership
-        # sweep; candidate POSITIONS must sit on the true boundary (an
-        # eps-shifted candidate is genuinely outside the set and its
-        # violation compounds over sweeps) — un-shift to O(eps^2).
+    vertex = jnp.where(p0 > 0.0, -q0 / (2.0 * safe_p0), jnp.nan)
+    tiles = []
+    for (_, _, _, _, a, b, es, act) in blocks:
+        # _canon_leq folds the tangency slop into a/b for the membership
+        # test; candidate POSITIONS must sit on the true boundary (an
+        # eps-shifted candidate is outside the set and its violation
+        # compounds over sweeps) — un-shift to O(eps^2).
         a_t = a + es * 5e-7 * (1.0 + jnp.abs(a))
         b_t = b - es * 5e-7 * (1.0 + jnp.abs(b))
-        cand_rows.append(jnp.where(jnp.abs(a) < jnp.inf, a_t, nanv))
-        cand_rows.append(jnp.where(jnp.abs(b) < jnp.inf, b_t, nanv))
-    cand_rows.append(jnp.full((1, R), -jnp.inf, f32))
-    cand_rows.append(jnp.full((1, R), jnp.inf, f32))
-    cands = jnp.concatenate(cand_rows, axis=0)                    # (C, R)
+        tiles.append(jnp.where(act & (jnp.abs(a) < inf), a_t, jnp.nan))
+        tiles.append(jnp.where(act & (jnp.abs(b) < inf), b_t, jnp.nan))
+    ends = [jnp.full((R,), -inf, f32), jnp.full((R,), inf, f32)]
 
-    feas = feas_matrix_from_canon(blocks, cands)                  # (C, R)
+    def values(c, feas):
+        finite = (p0 * c + q0) * c + r0
+        sgn_c = jnp.where(c > 0.0, 1.0, -1.0)
+        infv = jnp.where(p0 != 0.0, jnp.where(p0 > 0.0, inf, -inf),
+                         jnp.where(q0 != 0.0,
+                                   jnp.where(q0 > 0.0, sgn_c, -sgn_c) * inf,
+                                   r0))
+        vals = jnp.where(jnp.abs(c) == inf, infv, finite)
+        vals = jnp.where(feas & ~jnp.isnan(vals), vals, inf)
+        dist = jnp.abs(c - xk)
+        return vals, jnp.where(jnp.isnan(dist), inf, dist)
 
-    finite_vals = (p0 * cands + q0r) * cands + r0r
-    sgn_c = jnp.where(cands > 0.0, 1.0, -1.0)
-    infv = jnp.where(p0 != 0.0,
-                     jnp.where(p0 > 0.0, jnp.inf, -jnp.inf),
-                     jnp.where(q0r != 0.0,
-                               jnp.where(q0r > 0.0, sgn_c, -sgn_c) * jnp.inf,
-                               r0r))
-    vals = jnp.where(jnp.abs(cands) == jnp.inf, infv, finite_vals)
-    vals = jnp.where((feas > 0.5) & ~jnp.isnan(vals), vals, jnp.inf)
+    def visit(c, st):
+        bv, bd, bx, anyf = st
+        f = _feas_of(blocks, c)
+        val, d = values(c, f)
+        better = (val < bv) | ((val == bv) & (d < bd))
+        return (jnp.where(better, val, bv), jnp.where(better, d, bd),
+                jnp.where(better, c, bx), jnp.maximum(anyf, f.astype(f32)))
 
-    any_feas = jnp.max(feas, axis=0) > 0.5
-    vmin = jnp.min(vals, axis=0)
-    tied = (vals == vmin[None, :]).astype(f32)
-    dist = jnp.where(tied > 0.5, jnp.abs(cands - xk[None, :]), jnp.inf)
-    dist = jnp.where(jnp.isnan(dist), jnp.inf, dist)
-    any_fin = jnp.min(dist, axis=0) < jnp.inf
-    idx = jnp.where(any_fin, jnp.argmin(dist, axis=0),
-                    jnp.argmin(vals, axis=0))
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, cands.shape, 0)
-    onehot = (row_ids == idx[None, :].astype(jnp.int32)).astype(f32)
-    v = jnp.sum(jnp.where(onehot > 0.5, cands, 0.0), axis=0)
-    return v, any_feas
+    st = (jnp.full((R,), inf, f32), jnp.full((R,), inf, f32),
+          jnp.full((R,), jnp.nan, f32), jnp.zeros((R,), f32))
+    st = _stream(tiles, visit, visit(vertex, st))
+    for e in ends:
+        st = visit(e, st)
+    return st[2], st[3] > 0.5
 
 
-def _phase2_loop(x0, ctx, *, n: int, m: int, eq_idx: tuple, num_iters: int,
-                 tol: float, viol_tol: float):
-    """Full phase-2 CD (reference: qcqp/qcqp.py:152-178) on an (n, R) tile.
-
-    The feasibility gate (qcqp.py:189-190) is per lane: lanes entering above
-    viol_tol start with a saturated no-move counter and never move.  The
-    slack is fixed at each lane's entry violation (qcqp.py:157,167); a lane
-    stops after n consecutive non-moves."""
+def _phase2_loop(x0, ctx, *, n: int, num_iters: int, tol: float,
+                 viol_tol: float):
+    """Full phase-2 CD (reference: qcqp/qcqp.py:152-178) on an (R, n_p)
+    block.  The feasibility gate (qcqp.py:189-190) is per restart: restarts
+    entering above viol_tol start with a saturated no-move counter and never
+    move.  The slack is fixed at each restart's entry violation
+    (qcqp.py:157,167); a restart stops after n consecutive non-moves."""
     f32 = jnp.float32
-    refresh_F, viols_from_F, restriction = ctx
-    R = x0.shape[-1]
-    e = len(eq_idx)
+    refresh_F, viol_rows, restriction, _ = ctx
     n_f = jnp.float32(n)
 
     F0 = refresh_F(x0)
-    viol0 = jnp.max(viols_from_F(F0), axis=0, initial=0.0)        # (R,)
-    gate = viol0 < viol_tol
-    slack = viol0
-    counter0 = jnp.where(gate, 0.0, n_f)
+    slack = jnp.max(viol_rows(F0), axis=1)                       # (R,)
+    counter0 = jnp.where(slack < viol_tol, 0.0, n_f)
+    row0 = jax.lax.broadcasted_iota(jnp.int32, (1, F0.shape[1]), 1) == 0
 
     def coord_body(k, carry):
         x, F, counter = carry
-        onehot, xk, t2, t1, t0 = restriction(k, x, F)
-
-        t2c = jnp.broadcast_to(t2[1:], (m, R))
-        t1c, t0c = t1[1:], t0[1:]
-        act = ((t2c != 0.0) | (t1c != 0.0)).astype(f32)
-        sb = slack[None, :]
-
-        one = jnp.ones_like(t2c)
-        base1, sgn1, a1, b1, es1, c1 = _canon_leq(t2c, t1c, t0c - sb, tol)
-        base1 = jnp.where(act > 0, base1, one)
-        sgn1 = jnp.where(act > 0, sgn1, 0.0 * one)
-        blocks = [(base1, sgn1, a1, b1, es1, c1)]
-        if e:
-            p2, q2, r2, act2 = (_take_rows(t2c, eq_idx),
-                                _take_rows(t1c, eq_idx),
-                                _take_rows(t0c, eq_idx),
-                                _take_rows(act, eq_idx))
-            one2 = jnp.ones_like(p2)
-            base2, sgn2, a2, b2, es2, c2 = _canon_leq(-p2, -q2, -r2 - sb,
-                                                      tol)
-            base2 = jnp.where(act2 > 0, base2, one2)
-            sgn2 = jnp.where(act2 > 0, sgn2, 0.0 * one2)
-            blocks.append((base2, sgn2, a2, b2, es2, c2))
-
-        # Materialize row 0 of t2 as a genuine (1, R) vector: slicing to
-        # (1, 1) and broadcasting against the (C, R) candidate matrix needs a
-        # both-dims vector.broadcast, which Mosaic lacks; the (m+1, 1) x
-        # (1, R) lanes-only mul is the same pattern phase 1 already uses.
-        t2R = t2 * jnp.ones((1, R), f32)
-        v, any_feas = _phase2_select(blocks, xk, t2R[0:1], t1[0:1], t0[0:1])
+        sel, xk, t2, t1, t0, act, act2 = restriction(k, x, F)
+        sb = slack[:, None]
+        blocks = [_block(t2, t1, t0 - sb, act, tol),
+                  _block(-t2, -t1, -t0 - sb, act2, tol)]
+        v, any_feas = _phase2_select(blocks, xk, _col(t2, row0),
+                                     _col(t1, row0), _col(t0, row0))
         accept = (any_feas & (jnp.abs(v - xk) > tol)
                   & (jnp.abs(v) < jnp.inf) & ~jnp.isnan(v)
                   & (counter < n_f))
         counter = jnp.where(accept, 0.0, counter + 1.0)
-        v = jnp.where(accept, v, xk)
-        F = t2 * v[None, :] ** 2 + t1 * v[None, :] + t0
-        x = jnp.where(onehot > 0.5, v[None, :], x)
+        vc = jnp.where(accept, v, xk)[:, None]
+        F = t2 * vc ** 2 + t1 * vc + t0
+        x = jnp.where(sel, vc, x)
         return x, F, counter
 
     def sweep_cond(c):
@@ -329,97 +314,104 @@ def _phase2_loop(x0, ctx, *, n: int, m: int, eq_idx: tuple, num_iters: int,
         x, F, counter = jax.lax.fori_loop(0, n, coord_body, (x, F, counter))
         return x, F, t + 1, counter
 
-    init = (x0, F0, jnp.int32(0), counter0)
-    x, _, _, _ = jax.lax.while_loop(sweep_cond, sweep_body, init)
+    return jax.lax.while_loop(sweep_cond, sweep_body,
+                              (x0, F0, jnp.int32(0), counter0))[0]
+
+
+def _body(PT, qk3, dg, rr, cm, eqm, x, *, n, num_iters, tol, viol_tol,
+          n_bisect, phase1, phase2):
+    ctx = _make_ctx(PT, qk3, dg, rr, cm, eqm, n=n)
+    kw = dict(n=n, num_iters=num_iters, tol=tol, viol_tol=viol_tol)
+    if phase1:
+        x = _phase1_loop(x, ctx, n_bisect=n_bisect, **kw)
+    if phase2:
+        x = _phase2_loop(x, ctx, **kw)
     return x
 
 
-def _phase1_sweep_kernel(P_ref, P1_ref, qT_ref, r_ref, x_ref, out_ref,
-                         wbs_ref, *,
-                         n: int, m: int, eq_idx: tuple, num_iters: int,
-                         tol: float, viol_tol: float, n_bisect: int):
-    eq_idx = tuple(int(i) for i in eq_idx)
-    ctx = _make_ctx(P_ref, P1_ref, qT_ref, r_ref, n=n, m=m, eq_idx=eq_idx)
-    out_ref[:] = _phase1_loop(x_ref[:], ctx, n=n, m=m, eq_idx=eq_idx,
-                              num_iters=num_iters, tol=tol,
-                              viol_tol=viol_tol, n_bisect=n_bisect,
-                              wbs_ref=wbs_ref)
+def _kernel(PT, qk3, dg, rr, cm, eqm, x_ref, o_ref, **kw):
+    o_ref[...] = _body(PT, qk3, dg, rr, cm, eqm, x_ref[...], **kw)
 
 
-def _two_phase_kernel(P_ref, P1_ref, qT_ref, r_ref, x_ref, out_ref,
-                      wbs_ref, *,
-                      n: int, m: int, eq_idx: tuple, num_iters: int,
-                      tol: float, viol_tol: float, n_bisect: int,
-                      phase1: bool):
-    eq_idx = tuple(int(i) for i in eq_idx)
-    ctx = _make_ctx(P_ref, P1_ref, qT_ref, r_ref, n=n, m=m, eq_idx=eq_idx)
-    x = x_ref[:]
-    if phase1:
-        x = _phase1_loop(x, ctx, n=n, m=m, eq_idx=eq_idx,
-                         num_iters=num_iters, tol=tol, viol_tol=viol_tol,
-                         n_bisect=n_bisect, wbs_ref=wbs_ref)
-    out_ref[:] = _phase2_loop(x, ctx, n=n, m=m, eq_idx=eq_idx,
-                              num_iters=num_iters, tol=tol,
-                              viol_tol=viol_tol)
+def _whole(shape):
+    nd = len(shape)
+    return pl.BlockSpec(shape, lambda i: (0,) * nd)
 
 
-def _call_sweep_kernel(kernel_fn, P, q, r, xs, interpret):
-    k1, n = P.shape[0], P.shape[-1]
-    R = xs.shape[0]
-    assert xs.shape[1] == n and R % LANES == 0
+def pad_problem(P, q, r, eq_idx):
+    """Zero-padded float32 operands of the body: PT (n_p, n_p, k_p),
+    qk3 / dg (n_p, 1, k_p), rr / cm / eqm (1, k_p)."""
     f32 = jnp.float32
-    P = P.astype(f32)
-    P1 = jnp.moveaxis(P, 2, 0)                       # P1[k] = P[:, :, k]
-    qT = q.astype(f32)
-    rr = r.astype(f32)[:, None]
-    xsT = xs.astype(f32).T                           # (n, R)
+    k1, n = P.shape[0], P.shape[-1]
+    n_p, k_p = _pow2(n), _pow2(k1)
+    Pp = jnp.pad(P.astype(f32), ((0, k_p - k1), (0, n_p - n), (0, n_p - n)))
+    qp = jnp.pad(q.astype(f32), ((0, k_p - k1), (0, n_p - n)))
+    PT = jnp.transpose(Pp, (1, 2, 0))            # PT[k, j, i] = P[i, k, j]
+    dg = jnp.diagonal(Pp, axis1=1, axis2=2).T[:, None, :]
+    qk3 = qp.T[:, None, :]
+    rr = jnp.pad(r.astype(f32), (0, k_p - k1))[None, :]
+    cm = np.zeros((1, k_p), np.float32)
+    cm[0, 1:k1] = 1.0
+    eqm = np.zeros((1, k_p), np.float32)
+    eqm[0, [1 + int(i) for i in eq_idx]] = 1.0
+    return PT, qk3, dg, rr, jnp.asarray(cm), jnp.asarray(eqm)
 
-    grid = R // LANES
-    bc3 = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0, 0))
-    bc2 = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0))
-    tile = pl.BlockSpec((n, LANES), lambda i: (0, i))
+
+def _sweeps(P, q, r, eq_idx, xs, *, num_iters, viol_tol, tol, n_bisect,
+            phase1, phase2, interpret, block_r):
+    n = P.shape[-1]
+    R = xs.shape[0]
+    assert xs.shape[1] == n
+    kw = dict(n=n, num_iters=int(num_iters), tol=float(tol),
+              viol_tol=float(viol_tol), n_bisect=int(n_bisect),
+              phase1=bool(phase1), phase2=bool(phase2))
     with jax.enable_x64(False):
+        ops = pad_problem(P, q, r, eq_idx)
+        n_p = ops[0].shape[0]
+        R_pad = -(-R // block_r) * block_r
+        x = jnp.pad(xs.astype(jnp.float32), ((0, R_pad - R), (0, n_p - n)))
+        tile = pl.BlockSpec((block_r, n_p), lambda i: (i, 0))
         out = pl.pallas_call(
-            kernel_fn,
-            grid=(grid,),
-            in_specs=[bc3((k1, n, n)), bc3((n, k1, n)), bc2((k1, n)),
-                      bc2((k1, 1)), tile],
+            functools.partial(_kernel, **kw),
+            grid=(R_pad // block_r,),
+            in_specs=[_whole(o.shape) for o in ops] + [tile],
             out_specs=tile,
-            out_shape=jax.ShapeDtypeStruct((n, R), f32),
-            scratch_shapes=[pltpu.VMEM((n, 2, LANES), f32)],
+            out_shape=jax.ShapeDtypeStruct((R_pad, n_p), jnp.float32),
+            backend="triton",
+            compiler_params=pltriton.CompilerParams(num_warps=4,
+                                                    num_stages=1),
             interpret=interpret,
-        )(P, P1, qT, rr, xsT)
-    return out.T
+            name="cd_two_phase_sweeps",
+        )(*ops, x)
+    return out[:R, :n]
 
 
 def phase1_sweeps(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
                   tol=1e-4, n_bisect=40, interpret=False):
-    """Run full phase-1 CD for a restart batch in one pallas_call.
+    """Run full phase-1 CD for a restart batch.
 
     P (m+1, n, n) symmetric, q (m+1, n), r (m+1,); eq_idx static tuple of
-    equality rows; xs (R, n) with R a multiple of 128.  Returns xs' (R, n).
+    equality rows; xs (R, n), padded internally to a multiple of BLOCK_R.
+    Returns xs' (R, n) in float32.
     """
-    k1, n = P.shape[0], P.shape[-1]
-    kernel = functools.partial(
-        _phase1_sweep_kernel, n=n, m=k1 - 1,
-        eq_idx=tuple(int(i) for i in eq_idx), num_iters=int(num_iters),
-        tol=float(tol), viol_tol=float(viol_tol), n_bisect=int(n_bisect))
-    return _call_sweep_kernel(kernel, P, q, r, xs, interpret)
+    return _sweeps(P, q, r, eq_idx, xs, num_iters=num_iters,
+                   viol_tol=viol_tol, tol=tol, n_bisect=n_bisect,
+                   phase1=True, phase2=False, interpret=interpret,
+                   block_r=BLOCK_R)
 
 
 def two_phase_sweeps(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
-                     tol=1e-4, n_bisect=40, phase1=True, interpret=False):
-    """Run the full two-phase CD improve for a restart batch in one
-    pallas_call (reference: qcqp/qcqp.py:181-192; phase-2 gate of
-    qcqp.py:189-190 applied per lane inside the kernel).
+                     tol=1e-4, n_bisect=40, phase1=True, interpret=False,
+                     block_r=BLOCK_R):
+    """Run the full two-phase CD improve for a restart batch (reference:
+    qcqp/qcqp.py:181-192; phase-2 gate of qcqp.py:189-190 applied per
+    restart).
 
     Same tensor contract as phase1_sweeps; phase1=False skips straight to
     the objective-descent phase (the reference improve's phase1 kwarg).
+    block_r restarts per program (benchmarks/cd_paths.py compares sizes).
     """
-    k1, n = P.shape[0], P.shape[-1]
-    kernel = functools.partial(
-        _two_phase_kernel, n=n, m=k1 - 1,
-        eq_idx=tuple(int(i) for i in eq_idx), num_iters=int(num_iters),
-        tol=float(tol), viol_tol=float(viol_tol), n_bisect=int(n_bisect),
-        phase1=bool(phase1))
-    return _call_sweep_kernel(kernel, P, q, r, xs, interpret)
+    return _sweeps(P, q, r, eq_idx, xs, num_iters=num_iters,
+                   viol_tol=viol_tol, tol=tol, n_bisect=n_bisect,
+                   phase1=phase1, phase2=True, interpret=interpret,
+                   block_r=block_r)

@@ -1,7 +1,7 @@
 """One-variable QCQP kernel: minimize a scalar quadratic over the feasible set
 of m scalar quadratic constraints with slack s.
 
-TPU-native redesign of the reference's interval machinery
+Fixed-shape redesign of the reference's interval machinery
 (reference: qcqp/utilities.py:198-288).  The reference builds Python lists of
 feasible intervals per constraint, sweeps sorted endpoints with a counter dict,
 then scans interval endpoints for the best objective value.  None of that is
@@ -13,7 +13,7 @@ expressible as fixed-shape compiled code, so this kernel uses the equivalent
   endpoint of some constraint's feasible interval, or +-inf.  All interval
   endpoints are roots of p x^2 + q x + (r -+ s), so evaluating feasibility of
   the O(m) candidate roots against all m constraints (a fixed-shape (4m+3, m)
-  masked broadcast on the VPU) recovers the exact sweep-line answer.
+  masked broadcast) recovers the exact sweep-line answer.
 
 Branch semantics (|p| <= tol handling, closed intervals, +-inf behavior) follow
 the reference exactly (qcqp/utilities.py:209-231), including its quirk that a

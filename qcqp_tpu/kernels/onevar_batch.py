@@ -1,39 +1,33 @@
-"""Pallas fused phase-1 coordinate kernel: the slack bisection in VMEM.
+"""Batched phase-1 coordinate update: the slack bisection over a restart batch.
 
-The coordinate-descent phase-1 hot path solves, per coordinate and restart,
+The coordinate-descent phase-1 step solves, per coordinate and restart,
 
     min s  s.t.  exists x: viol_i(x) <= s  for all i     (slack bisection)
 
-by ~17 halvings, each evaluating (2m+1) candidate left-endpoints against m
-constraints.  Under plain XLA each halving is a separate fusion with its
-(R, 2m+1)-shaped intermediates round-tripping through HBM; this kernel runs
-the *entire* bisection for a 128-restart lane tile inside one pallas_call,
-with the restriction coefficients (m, 128) resident in VMEM and the
-candidate/feasibility algebra batched over lanes.
+by a few halvings, each evaluating the candidate left endpoints of the
+constraints' solution sets against every constraint.  Here the whole
+bisection of a coordinate step runs over the batch at once, as plain JAX.
 
-Layout: restarts on the 128-lane axis, constraints on the sublane axis.
-Inputs per coordinate step (transposed from the solver's (R, m) layout):
+Layout: restarts on the last axis, constraints on the first.
     p, q, r   (m, R)   restriction coefficients of the m constraints
-    is_eq     (m, R)   broadcast flags (f32 0/1)
-    xk, viol  (1, R)   current coordinate value / current violation
-Outputs:
-    v         (1, R)   accepted new coordinate value (xk where not accepted)
+    is_eq     (m, R)   equality flags
+    xk, viol  (R,)     current coordinate value / current violation
+Output:
+    v         (R,)     accepted new coordinate value (xk where not accepted)
 
 Semantics identical to solvers.coord_descent phase-1 + kernels.onevar
 phase1_feasible_point (left-endpoint candidates, proximal tie-break,
-`new_viol < viol` acceptance).  float32; validated against the reference
-path in tests/test_onevar_pallas.py.
+`new_viol < viol` acceptance); validated against that path in
+tests/test_onevar_pallas.py.  The elementwise helpers here (`_canon_leq`,
+`_g_form`, `_bisect_accept`) are shared with the two-phase sweep kernel
+(kernels/cd_sweep_pallas.py), which works in a (restarts, rows) layout.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
-LANES = 128
 DEFAULT_TOL = 1e-4
 
 
@@ -91,8 +85,8 @@ def _canon_leq(p, q, c, tol):
     # of per (row, candidate) in the membership sweep: candidates are these
     # very boundary values recomputed by separately compiled expressions, so
     # eps(boundary) == eps(candidate) to O(eps^2) and the guard is
-    # unchanged, while the inner check drops from ~9 to ~7 lane-ops — the
-    # sweep is the CD mega-kernel's dominant cost (BASELINE.md roofline).
+    # unchanged, while the inner check drops from ~9 to ~7 elementwise ops
+    # (the candidate sweep is the CD improve's dominant cost).
     a = jnp.where(jnp.isfinite(a), a - es * 5e-7 * (1.0 + jnp.abs(a)), a)
     b = jnp.where(jnp.isfinite(b), b + es * 5e-7 * (1.0 + jnp.abs(b)), b)
     # left-endpoint candidate (matches the old _left_ep_rows selection)
@@ -113,9 +107,9 @@ def _g_form(base, sgn, a, b):
       full      (base 1, sgn  0): s +1, a' = -inf, b' = +inf (as-is)
 
     Candidate-independent — one O(rows) pass per bisection trip — and it
-    buys the candidate sweep's inner check down from ~7 lane-ops
+    buys the candidate sweep's inner check down from ~7 elementwise ops
     (compare/compare/convert/mul/add/mul fold) to 5 (sub/sub/max/mul/max
-    fold), the CD mega-kernel's dominant term (BASELINE.md roofline)."""
+    fold)."""
     s = jnp.where(sgn < -0.5, -1.0, 1.0)
     nosgn = jnp.abs(sgn) < 0.5
     empty = (base < 0.5) & nosgn
@@ -145,8 +139,7 @@ def feas_matrix_from_canon(blocks, cands):
     # either infinite — strictly beyond the clamp — or O(1) finite).
     cf = jnp.clip(cands, -3.0e38, 3.0e38)
     g = jnp.full(cands.shape, -jnp.inf, jnp.float32)
-    # Static unroll over the canonical rows: Mosaic has no dynamic_slice
-    # on values, and the row counts are trace-time constants anyway.
+    # Static unroll over the canonical rows (trace-time constant counts).
     for (base, sgn, a, b, es, _) in blocks:
         s, a2, b2 = _g_form(base, sgn, a, b)
         for j in range(base.shape[0]):
@@ -173,8 +166,7 @@ def _feasible_point_from_canon(blocks, xk):
     dist = jnp.where(feas > 0.5, jnp.abs(cands - xk[None, :]), big)
     dist = jnp.where(jnp.isnan(dist), big, dist)
     any_fin = jnp.min(dist, axis=0) < big
-    # Mosaic arg-reductions only support f32, and gathers along sublanes are
-    # unsupported — select via argmin on f32 keys + a one-hot contraction.
+    # first minimal distance; else the first feasible candidate
     best_prox = jnp.argmin(dist, axis=0)
     first_feas = jnp.argmin(1.0 - feas, axis=0)
     idx = jnp.where(any_fin, best_prox, first_feas)
@@ -184,14 +176,14 @@ def _feasible_point_from_canon(blocks, xk):
     return witness, exists
 
 
-def feasible_point_rows(p, q, r, eq, act, xk, s, m, tol):
+def feasible_point_rows(p, q, r, eq, act, xk, s, tol):
     """(witness (R,), exists (R,)) at slack row s (R,), block layout (m, R).
 
     Identical semantics to kernels.onevar.phase1_feasible_point, restructured
-    for lane-major tiles (also used directly by the Pallas kernel body).
+    for restart-major tiles.
     The per-constraint interval bounds are hoisted out of the candidate loop
     (the old form recomputed the quadratic formula once per (constraint,
-    candidate) pair — 4x more VPU work at the bench shape).
+    candidate) pair — 4x more elementwise work at the bench shape).
     """
     one = jnp.ones_like(p)
     sb = s[None, :]
@@ -245,7 +237,7 @@ REL_SLACK_TOL = 1.0 / 16.0
 
 def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
                    viol_of=None, rel=REL_SLACK_TOL, warm=None):
-    """Shared slack-bisection tail of the phase-1 kernels (reference:
+    """Shared slack-bisection tail of the batched phase-1 paths (reference:
     qcqp/qcqp.py:122-135).  Returns (v, warm_out): v is the accepted
     coordinate value (xk where not accepted); warm_out is the accepted
     witness's slack for cross-sweep warm starting (+inf where not
@@ -266,10 +258,10 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
       When the minimal slack is large, resolving it to the absolute tol buys
       no quality (the accept only needs strict improvement, and later sweeps
       re-refine); this caps the infeasible-heavy lanes that otherwise gate
-      the whole tile at the worst case.  Deviation from the reference's
+      the whole batch at the worst case.  Deviation from the reference's
       absolute-tol bisection (qcqp.py:122-131), quality-pinned by the golden
       example and parity tests.
-    * warm (optional, round 5 / VERDICT r4 #2): per-lane (wlo, whi) bracket
+    * warm (optional): per-lane (wlo, whi) bracket
       carried from this coordinate's bisection LAST sweep — wlo the final
       certified-infeasible slack, whi the accepted witness slack (+inf if
       none).  The bracket starts at the narrow window [wlo*(1-rel)-tol,
@@ -300,8 +292,8 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
         # the dominant trip cost on infeasible-heavy batches — while every
         # lane that moved last sweep keeps the exact cold window, so the
         # accepted points (where quality is made) are bit-identical to the
-        # cold kernel.  (A measured variant that also warmed the accepting
-        # lanes' window around their last slack ran 2.08x but degraded the
+        # cold bisection.  (A variant that also warmed the accepting lanes'
+        # window around their last slack took fewer trips but degraded the
         # bench best point (f, v) from (-6.78, 3.24) to (18.5, 3.42) —
         # rejected; quality gates the throughput metric.)
         wlo, whi = warm
@@ -336,10 +328,7 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
     def live_score(ss, es, found):
         # > 0 while a lane still has work: bracket wider than its gap
         # target, or a warm window that exhausted without a feasible probe
-        # and can still escalate to the cold top.  f32 reduction (Mosaic
-        # lowers bool reductions through an intermediate whose dtype
-        # follows the x64 config at *outer-jit lowering* time, outside our
-        # enable_x64(False) scope).
+        # and can still escalate to the cold top.
         gap = es - ss - gap_tgt(ss)
         esc = jnp.where((found < 0.5) & (es < es_cold), 1.0, -1.0)
         return jnp.maximum(gap, esc)
@@ -355,6 +344,12 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
             (es < es_cold)
         es = jnp.where(need_esc, es_cold, es)
         do = (es - ss) > gap_tgt(ss)
+        # The probe sits 0.1% of the bracket below the midpoint.  The value
+        # is empirical, not derived: outcomes are chaotic in the probe
+        # trajectory, and with the exact midpoint the best restart of
+        # tests/test_bisect_quality.py at scale 1 lands in violation
+        # bucket 4 instead of 2 (CPU).  The acceptance rule is unchanged
+        # either way.
         sm = 0.501 * ss + 0.499 * es
         xi, exists = feasible_point(sm)
         take = do & exists
@@ -374,7 +369,7 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
         es = jnp.where(take, s_up, es)
         bx = jnp.where(take, xi, bx)
         bs = jnp.where(take, s_up, bs)
-        # found carried as f32 0/1: Mosaic rejects i1 loop carries
+        # found carried as f32 0/1 (float loop carries only)
         found = jnp.maximum(found, take.astype(jnp.float32))
         return ss, es, bx, bs, found, wflag, it + 1
 
@@ -391,19 +386,9 @@ def _bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
     return jnp.where(accept, bx, xk), (wlo_out, whi_out)
 
 
-def _phase1_kernel(p_ref, q_ref, r_ref, eq_ref, act_ref, xk_ref, viol_ref,
-                   v_ref, *, m: int, tol: float, viol_tol: float,
-                   n_bisect: int):
-    p = p_ref[:]          # (m, R)
-    q = q_ref[:]
-    r = r_ref[:]
-    eq = eq_ref[:]        # (m, R) 0/1
-    act = act_ref[:]      # (m, R) 0/1
-    xk = xk_ref[0, :]     # (R,)
-    viol = viol_ref[0, :]
-
+def _phase1_update(p, q, r, eq, act, xk, viol, tol, viol_tol, n_bisect):
     def feasible_point(s):
-        return feasible_point_rows(p, q, r, eq, act, xk, s, m, tol)
+        return feasible_point_rows(p, q, r, eq, act, xk, s, tol)
 
     def viol_of(v):
         vb = v[None, :]
@@ -411,35 +396,21 @@ def _phase1_kernel(p_ref, q_ref, r_ref, eq_ref, act_ref, xk_ref, viol_ref,
         vv = jnp.where(eq > 0.5, jnp.abs(val), jnp.maximum(val, 0.0))
         return jnp.max(jnp.where(act > 0.5, vv, 0.0), axis=0)
 
-    v_ref[0, :] = _bisect_accept(feasible_point, xk, viol, tol, viol_tol,
-                                 n_bisect, viol_of=viol_of)[0]
+    return _bisect_accept(feasible_point, xk, viol, tol, viol_tol,
+                          n_bisect, viol_of=viol_of)[0]
 
 
-def _phase1_kernel_split(*refs, e: int, tol: float, viol_tol: float,
-                         n_bisect: int):
-    """Static-equality-pattern kernel: inequality rows appear once, the E
-    equality rows (pre-gathered by the wrapper) carry their reversed block."""
-    if e:
-        (p_ref, q_ref, r_ref, act_ref, p2_ref, q2_ref, r2_ref, act2_ref,
-         xk_ref, viol_ref, v_ref) = refs
-        p2, q2, r2, act2 = p2_ref[:], q2_ref[:], r2_ref[:], act2_ref[:]
-    else:
-        p_ref, q_ref, r_ref, act_ref, xk_ref, viol_ref, v_ref = refs
-        p2 = q2 = r2 = act2 = None
-    p = p_ref[:]          # (m, R)
-    q = q_ref[:]
-    r = r_ref[:]
-    act = act_ref[:]      # (m, R) 0/1
-    xk = xk_ref[0, :]     # (R,)
-    viol = viol_ref[0, :]
-
+def _phase1_update_split(p, q, r, act, p2, q2, r2, act2, xk, viol, tol,
+                         viol_tol, n_bisect):
+    """Static equality pattern: inequality rows appear once, the E equality
+    rows (pre-gathered by the caller) carry their reversed block."""
     def feasible_point(s):
         return feasible_point_rows_split(p, q, r, act, p2, q2, r2, act2,
                                          xk, s, tol)
 
     def viol_of(v):
-        # static eq pattern: the positive side of every row lives in block 1;
-        # the eq rows' negative side (|val| = max(val, -val)) in block 2
+        # the positive side of every row lives in block 1; the eq rows'
+        # negative side (|val| = max(val, -val)) in block 2
         vb = v[None, :]
         val = (p * vb + q) * vb + r
         w = jnp.max(jnp.where(act > 0.5, jnp.maximum(val, 0.0), 0.0), axis=0)
@@ -450,61 +421,35 @@ def _phase1_kernel_split(*refs, e: int, tol: float, viol_tol: float,
             w = jnp.maximum(w, w2)
         return w
 
-    v_ref[0, :] = _bisect_accept(feasible_point, xk, viol, tol, viol_tol,
-                                 n_bisect, viol_of=viol_of)[0]
+    return _bisect_accept(feasible_point, xk, viol, tol, viol_tol,
+                          n_bisect, viol_of=viol_of)[0]
 
 
 def phase1_coordinate_update(p, q, r, is_eq, active, xk, viol,
                              tol=DEFAULT_TOL, viol_tol=1e-2, n_bisect=40,
-                             interpret=False, eq_idx=None):
-    """Fused phase-1 coordinate solve for a restart batch.
+                             eq_idx=None):
+    """Phase-1 coordinate solve for a restart batch, in float32.
 
-    p, q, r, is_eq, active: (m, R); xk, viol: (R,). R must be a multiple of
-    128 (the caller pads the restart batch). Returns v (R,).
+    p, q, r, is_eq, active: (m, R); xk, viol: (R,).  Returns v (R,).
 
     eq_idx: optional static tuple of the equality-constraint row indices.
-    When given, the kernel skips the structurally neutralized reversed rows
-    of inequality constraints (the generic kernel computes and masks them),
-    and `is_eq` is ignored.  Semantics are identical for row-constant
-    equality masks; `eq_idx=None` keeps the fully data-dependent path.
+    When given, the reversed rows of inequality constraints (neutralized
+    no-ops in the generic form) are skipped structurally and `is_eq` is
+    ignored.  Semantics are identical for row-constant equality masks;
+    `eq_idx=None` keeps the fully data-dependent form.
     """
-    m, R = p.shape
-    grid = R // LANES
     f32 = jnp.float32
-    spec_m = pl.BlockSpec((m, LANES), lambda i: (0, i))
-    spec_1 = pl.BlockSpec((1, LANES), lambda i: (0, i))
-
-    if eq_idx is None:
-        kernel = functools.partial(_phase1_kernel, m=m, tol=tol,
-                                   viol_tol=viol_tol, n_bisect=n_bisect)
-        in_specs = [spec_m] * 5 + [spec_1, spec_1]
-        inputs = (p.astype(f32), q.astype(f32), r.astype(f32),
-                  is_eq.astype(f32), active.astype(f32),
-                  xk.astype(f32)[None, :], viol.astype(f32)[None, :])
-    else:
-        eq_idx = tuple(int(i) for i in eq_idx)
-        e = len(eq_idx)
-        kernel = functools.partial(_phase1_kernel_split, e=e, tol=tol,
-                                   viol_tol=viol_tol, n_bisect=n_bisect)
-        inputs = (p.astype(f32), q.astype(f32), r.astype(f32),
-                  active.astype(f32))
-        in_specs = [spec_m] * 4
-        if e:
-            idx = jnp.asarray(eq_idx)   # gather outside the kernel (XLA)
-            spec_e = pl.BlockSpec((e, LANES), lambda i: (0, i))
-            inputs += (p[idx].astype(f32), q[idx].astype(f32),
-                       r[idx].astype(f32), active[idx].astype(f32))
-            in_specs += [spec_e] * 4
-        inputs += (xk.astype(f32)[None, :], viol.astype(f32)[None, :])
-        in_specs += [spec_1, spec_1]
-
+    p, q, r = p.astype(f32), q.astype(f32), r.astype(f32)
+    act = active.astype(f32)
+    xk, viol = xk.astype(f32), viol.astype(f32)
     with jax.enable_x64(False):
-        v = pl.pallas_call(
-            kernel,
-            grid=(grid,),
-            in_specs=in_specs,
-            out_specs=spec_1,
-            out_shape=jax.ShapeDtypeStruct((1, R), f32),
-            interpret=interpret,
-        )(*inputs)
-    return v[0]
+        if eq_idx is None:
+            return _phase1_update(p, q, r, is_eq.astype(f32), act, xk, viol,
+                                  tol, viol_tol, n_bisect)
+        if eq_idx:
+            idx = jnp.asarray(eq_idx, jnp.int32)
+            blk2 = (p[idx], q[idx], r[idx], act[idx])
+        else:
+            blk2 = (None,) * 4
+        return _phase1_update_split(p, q, r, act, *blk2, xk, viol, tol,
+                                    viol_tol, n_bisect)

@@ -5,7 +5,7 @@ exactly, via eigendecomposition + secular-equation bisection, batched over the
 constraint axis (and vmappable over restarts) so the m per-iteration
 projections the reference runs in a Python loop (reference: qcqp/qcqp.py:206-210,
 235-238, author-marked `TODO: parallel` at qcqp.py:234) become two batched
-matmuls plus lockstep scalar iterations on the VPU.
+matmuls plus lockstep elementwise iterations.
 
 Method (reference: qcqp/utilities.py:149-196): rotate by the eigenbasis of P,
 then the KKT stationarity gives xhat(nu) = (2 zhat - nu qhat) / (2 (1 + nu lmb))
@@ -64,7 +64,7 @@ def project_onecons(z, lam, Q, qhat, r, is_eq, tol=DEFAULT_TOL, max_bisect=100):
     Single-constraint version; vmap over the leading constraint axis (and
     again over restarts) for the batched ADMM update.
     """
-    zhat = Q.T @ z  # rotation; batched callers turn this into an MXU matmul
+    zhat = Q.T @ z  # rotation; batched callers turn this into a matmul
 
     fz = jnp.sum(lam * zhat * zhat) + qhat @ zhat + r
     skip = (~is_eq) & (fz <= 0)  # fast path (reference: utilities.py:157-158)

@@ -1,6 +1,6 @@
 // Native canonicalization + problem-bank IO for qcqp_tpu.
 //
-// Role: the TPU-native equivalent of the reference's native canonicalization
+// Role: the host-side equivalent of the reference's native canonicalization
 // layer (CVXcanon C++ under CVXPY 0.4's QuadCoeffExtractor — reference:
 // qcqp/utilities.py:29,329; setup.py:13) plus a binary instance-bank
 // loader for the scenario-parallel serving path the reference lacks.

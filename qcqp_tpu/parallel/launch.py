@@ -2,20 +2,20 @@
 
 The reference is single-process, single-threaded (SURVEY.md section 2c; the
 closest marker is the author's `# TODO: parallel` at qcqp/qcqp.py:234).  This
-module is the pod-slice plumbing the TPU framework needs to scale the restart
-axis past one host: each host process calls `initialize(...)`, builds the
-global device mesh spanning every process's chips, and runs the same jitted
-`solve_restarts` program — GSPMD partitions it, collectives ride ICI within a
-slice and DCN across slices, and the replicated best-point result is
-addressable on every process.
+module is the multi-host plumbing needed to scale the restart axis past one
+host: each host process calls `initialize(...)`, builds the global device
+mesh spanning every process's devices, and runs the same jitted
+`solve_restarts` program — GSPMD partitions it, XLA inserts the collectives
+(NCCL within and across hosts on GPUs), and the replicated best-point result
+is addressable on every process.
 
 No custom transport is written (SURVEY.md section 5 "distributed comm
 backend"): `jax.distributed.initialize` brings up the coordination service
-and PJRT handles the rest.  The entire path is testable without TPU hardware
+and PJRT handles the rest.  The entire path is testable without accelerators
 by spawning N localhost CPU processes, each with
 `--xla_force_host_platform_device_count=K` (tests/test_distributed.py).
 
-Typical pod-slice usage (one command per host)::
+Typical multi-host usage (one command per host)::
 
     # host 0                                   # host 1
     initialize("10.0.0.1:8476", 2, 0)          initialize("10.0.0.1:8476", 2, 1)
@@ -47,8 +47,8 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
         same value; process 0 binds it).
     local_device_count: for CPU-backend testing only — forces this process to
         expose that many virtual host devices.  Must be set before the first
-        device op; on real TPU hosts leave it None (PJRT discovers the local
-        chips).
+        device op; on accelerator hosts leave it None (PJRT discovers the
+        local devices).
     """
     if local_device_count is not None:
         flags = os.environ.get("XLA_FLAGS", "")

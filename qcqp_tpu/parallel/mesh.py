@@ -3,10 +3,10 @@
 The second parallel dimension the math exposes (SURVEY.md section 2c): the m
 per-constraint ADMM projections are independent, so constraints shard across
 devices and only the consensus z-update needs communication — one psum of the
-local (sum x_i - sum u_i) partial sums per iteration, riding ICI.  This is
-the TPU-native answer to the reference's `TODO: parallel x/u-updates`
-(reference: qcqp/qcqp.py:234) at the scale where a single chip's VPU is not
-enough (m in the thousands).
+local (sum x_i - sum u_i) partial sums per iteration.  This is the answer
+to the reference's `TODO: parallel x/u-updates` (reference:
+qcqp/qcqp.py:234) at the scale where one device is not enough (m in the
+thousands).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ the restart axis (each suggest->improve chain independent) shards over one
 mesh axis, and the m per-constraint ADMM projections — the reference's
 `TODO: parallel x/u-updates` (reference: qcqp/qcqp.py:234) — shard over the
 other.  Per iteration the only cross-device traffic is one psum of the local
-consensus partial sums over the constraint axis (riding ICI); restarts never
+consensus partial sums over the constraint axis; restarts never
 communicate until the final lexicographic best-point reduction.
 
 Use when m is large enough that one chip's projection throughput is the

@@ -3,9 +3,10 @@
 The reference runs suggest/improve chains strictly one at a time
 (reference: examples/boolean_least_squares.py:19-38); the math is
 embarrassingly parallel over restarts (SURVEY.md section 2c).  Here the whole
-chain is one jitted program over a batch axis: thousands of restarts per chip
-via vmap, sharded across chips/hosts with `jax.sharding.NamedSharding` so XLA
-inserts the ICI collectives for the final best-point reduction.
+chain is one jitted program over a batch axis: thousands of restarts per
+device via vmap, sharded across devices/hosts with
+`jax.sharding.NamedSharding` so XLA inserts the collectives for the final
+best-point reduction.
 
 The reduction implements the reference's lexicographic `better` order
 (violation bucket, then objective — qcqp/utilities.py:135-146) as two
@@ -23,9 +24,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import routing
 from .. import settings as s
 from ..core import QCQPForm, eval_objective, max_violation
-from ..solvers.coord_descent import improve_coord_descent
 from ..solvers.admm import improve_admm, auto_rho
 from ..kernels.projection import precompute_eigh
 
@@ -33,14 +34,6 @@ from ..kernels.projection import precompute_eigh
 def make_mesh(devices: Optional[Sequence] = None, axis: str = "r") -> Mesh:
     devs = list(devices) if devices is not None else jax.devices()
     return Mesh(np.array(devs), (axis,))
-
-
-def _fused_default(form: QCQPForm) -> bool:
-    """Whether solve_restarts routes CD through the fused Pallas kernel when
-    the caller didn't choose: accelerator backend + f32 form.  Factored out
-    so tests can exercise the auto-on decision on the CPU mesh."""
-    return (jax.default_backend() != "cpu"
-            and form.P.dtype == jnp.float32)
 
 
 def best_point(form: QCQPForm, xs: jax.Array, tol: float = 1e-4):
@@ -93,6 +86,27 @@ def suggest_batch(form: QCQPForm, num: int, key: jax.Array,
     raise ValueError(f"Unknown suggest method: {method}")
 
 
+def _cd_path(form: QCQPForm, kwargs) -> str:
+    """CD path: `cd_path` if given (solve_restarts decides it once, where
+    the form is concrete), else the router's choice.  use_fused=False
+    forces the XLA path; use_fused=True forces the float32 path the GPU
+    would take (tests use it with interpret=True to run the kernel on the
+    CPU)."""
+    if "cd_path" in kwargs:
+        return kwargs["cd_path"]
+    use_fused = kwargs.get("use_fused", None)
+    if use_fused is False:
+        return routing.XLA
+    from ..solvers.coord_descent_fused import static_eq_idx
+    eq_static = (kwargs.get("eq_idx", None) is not None
+                 or static_eq_idx(form) is not None)
+    platform, dtype = jax.default_backend(), form.dtype
+    if use_fused:
+        platform, dtype = "gpu", jnp.float32
+    return routing.improve_paths(platform, dtype, form.n, form.m,
+                                 eq_static)[s.COORD_DESCENT]
+
+
 def improve_chain(form: QCQPForm, xs: jax.Array,
                   methods: Union[str, List[str]], **kwargs) -> jax.Array:
     """Apply improve methods in sequence to every restart (vmapped).
@@ -105,22 +119,8 @@ def improve_chain(form: QCQPForm, xs: jax.Array,
     eigh = None
     for method in methods:
         if method == s.COORD_DESCENT:
-            if kwargs.get("use_fused", False):
-                # Pallas fused/mega phase-1 kernel (f32).  Under a mesh,
-                # solve_restarts wraps this call in shard_map (a pallas_call
-                # has no SPMD partitioning rule), so here xs is always the
-                # local shard.
-                from ..solvers.coord_descent_fused import (
-                    improve_coord_descent_fused)
-                xs = improve_coord_descent_fused(
-                    form, xs,
-                    num_iters=kwargs.get("num_iters", 1000),
-                    viol_tol=kwargs.get("viol_tol", 1e-2),
-                    tol=kwargs.get("tol", 1e-4),
-                    phase1=kwargs.get("phase1", True),
-                    eq_idx=kwargs.get("eq_idx", None),
-                    interpret=kwargs.get("interpret", False))
-            else:
+            path = _cd_path(form, kwargs)
+            if path == routing.XLA:
                 # batched (not vmap of the single-restart improve): vmapping
                 # its phase-2 lax.cond broadcasts form.P per restart
                 from ..solvers.coord_descent import improve_coord_descent_batch
@@ -130,71 +130,47 @@ def improve_chain(form: QCQPForm, xs: jax.Array,
                     viol_tol=kwargs.get("viol_tol", 1e-2),
                     tol=kwargs.get("tol", 1e-4),
                     phase1=kwargs.get("phase1", True))
+            else:
+                # float32 batched paths.  Under a mesh, solve_restarts wraps
+                # the kernel in shard_map (a pallas_call has no SPMD
+                # partitioning rule), so here xs is the local shard.
+                from ..solvers.coord_descent_fused import (
+                    improve_coord_descent_fused)
+                xs = improve_coord_descent_fused(
+                    form, xs,
+                    num_iters=kwargs.get("num_iters", 1000),
+                    viol_tol=kwargs.get("viol_tol", 1e-2),
+                    tol=kwargs.get("tol", 1e-4),
+                    phase1=kwargs.get("phase1", True),
+                    path=path, eq_idx=kwargs.get("eq_idx", None),
+                    interpret=kwargs.get("interpret", False)
+                ).astype(xs.dtype)
         elif method == s.ADMM:
-            admm_data = kwargs.get("admm_data", None)
-            form_concrete = not isinstance(form.P, jax.core.Tracer)
-            if kwargs.get("use_fused", False) and (admm_data is not None
-                                                   or form_concrete):
-                # Whole-phase Pallas ADMM mega-kernel (kernels/admm_pallas.py,
-                # 3.3x the vmapped XLA path on v5e).  The one-time setup
-                # (per-constraint eighs, z-update inverse) needs concrete
-                # tensors, so under an outer trace the caller must pass
-                # admm_data (solve_restarts precomputes it host-side).
-                from ..kernels.admm_pallas import improve_admm_fused
-                xs = improve_admm_fused(
-                    form, xs, rho=kwargs.get("rho", None),
-                    num_iters=kwargs.get("num_iters", 1000),
-                    viol_lim=kwargs.get("viol_lim", 1e4),
-                    tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
-                    phase1=kwargs.get("phase1", True),
-                    better_tol=kwargs.get("better_tol", 1e-4),
-                    interpret=kwargs.get("interpret", False),
-                    data=admm_data).astype(xs.dtype)
-            else:
-                if eigh is None:
-                    eigh = precompute_eigh(form)
-                rho = kwargs.get("rho", None)
-                if rho is None:
-                    rho = auto_rho(form)
-                rho = jnp.asarray(rho, form.dtype)
-                fn = lambda x: improve_admm(
-                    form, x, rho,
-                    num_iters=kwargs.get("num_iters", 1000),
-                    viol_lim=kwargs.get("viol_lim", 1e4),
-                    tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
-                    phase1=kwargs.get("phase1", True),
-                    eigh=eigh)
-                xs = jax.vmap(fn)(xs)
+            if eigh is None:
+                eigh = precompute_eigh(form)
+            rho = kwargs.get("rho", None)
+            if rho is None:
+                rho = auto_rho(form)
+            rho = jnp.asarray(rho, form.dtype)
+            fn = lambda x: improve_admm(
+                form, x, rho,
+                num_iters=kwargs.get("num_iters", 1000),
+                viol_lim=kwargs.get("viol_lim", 1e4),
+                tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
+                phase1=kwargs.get("phase1", True),
+                eigh=eigh)
+            xs = jax.vmap(fn)(xs)
         elif method == s.DCCP:
-            ccp_data = kwargs.get("ccp_data", None)
-            form_concrete = not isinstance(form.P, jax.core.Tracer)
-            if (kwargs.get("use_fused", False)
-                    and not kwargs.get("use_eigen_split", False)
-                    and (ccp_data is not None or form_concrete)):
-                # Whole-improve Pallas CCP mega-kernel
-                # (kernels/ccp_pallas.py, 18.7x the vmapped path on v5e);
-                # like ADMM, the one-time eigh setup needs concrete
-                # tensors, so under an outer trace the caller passes
-                # ccp_data (solve_restarts precomputes it host-side).
-                from ..kernels.ccp_pallas import improve_ccp_fused
-                ccp_kw = {k: v for k, v in kwargs.items()
-                          if k in ("max_iter", "mu", "tau_max",
-                                   "inner_iters", "warm_inner")}
-                xs = improve_ccp_fused(
-                    form, xs, tau=kwargs.get("tau", 0.005),
-                    data=ccp_data, interpret=kwargs.get("interpret", False),
-                    **ccp_kw).astype(xs.dtype)
-            else:
-                from ..solvers.ccp import improve_ccp
-                # Same filtered forwarding as QCQP._improve_one
-                # (api.py:146-154): a chained solve(improve=[DCCP, ...],
-                # max_iter=...) must reach the CCP stage, not silently drop.
-                ccp_kw = {k: v for k, v in kwargs.items()
-                          if k in ("max_iter", "mu", "tau_max",
-                                   "inner_iters", "use_eigen_split")}
-                fn = lambda x: improve_ccp(
-                    form, x, tau=kwargs.get("tau", 0.005), **ccp_kw)
-                xs = jax.vmap(fn)(xs)
+            from ..solvers.ccp import improve_ccp
+            # Same filtered forwarding as QCQP._improve_one: a chained
+            # solve(improve=[DCCP, ...], max_iter=...) must reach the CCP
+            # stage, not silently drop.
+            ccp_kw = {k: v for k, v in kwargs.items()
+                      if k in ("max_iter", "mu", "tau_max",
+                               "inner_iters", "use_eigen_split")}
+            fn = lambda x: improve_ccp(
+                form, x, tau=kwargs.get("tau", 0.005), **ccp_kw)
+            xs = jax.vmap(fn)(xs)
         elif method == s.IPOPT:
             from ..solvers.nlp import improve_nlp
             nlp_kw = {k: v for k, v in kwargs.items()
@@ -214,7 +190,7 @@ def solve_restarts(form: QCQPForm, num_restarts: int, key: jax.Array,
     """Full parallel pipeline: suggest -> improve chain -> best-of reduction.
 
     With a mesh, the restart axis is sharded across its devices; XLA inserts
-    the reduction collectives (psum/pmin-equivalent) over ICI.
+    the reduction collectives (psum/pmin-equivalent).
     Returns (x_best, f_best, viol_best) replicated on all devices.
     """
     sdr_sampler = None
@@ -243,34 +219,13 @@ def solve_restarts(form: QCQPForm, num_restarts: int, key: jax.Array,
     # pad restarts to a multiple of the device count
     num_padded = -(-num_restarts // ndev) * ndev
 
-    # Fused Pallas CD on accelerator f32 runs — single device AND mesh runs
-    # (the mesh path maps the kernel per shard via shard_map below); the
-    # static eq pattern is lifted here, where the form is still concrete.
-    if "use_fused" not in kwargs and _fused_default(form):
-        kwargs["use_fused"] = True
-        try:
-            kwargs.setdefault("eq_idx", tuple(
-                int(i) for i in np.nonzero(np.asarray(form.is_eq))[0]))
-        except Exception:
-            pass
-
-    # Fused ADMM setup must happen HERE, outside the jit below, where the
-    # form is still concrete (host eighs + z-update inverse; see
-    # kernels/admm_pallas.ADMMFusedData).  Inside jit/shard_map the ADMM
-    # branch of improve_chain then consumes the precomputed tensors.
-    methods_list = improve if isinstance(improve, list) else [improve]
-    if (kwargs.get("use_fused", False) and s.ADMM in methods_list
-            and "admm_data" not in kwargs):
-        from ..kernels.admm_pallas import ADMMFusedData, admm_fused_fits
-        if admm_fused_fits(form.n, form.m):
-            kwargs["admm_data"] = ADMMFusedData(form, kwargs.get("rho", None))
-    if (kwargs.get("use_fused", False) and s.DCCP in methods_list
-            and "ccp_data" not in kwargs
-            and not kwargs.get("use_eigen_split", False)):
-        from ..kernels.ccp_pallas import CCPFusedData, ccp_fused_fits
-        data = CCPFusedData(form)
-        if ccp_fused_fits(form.n, form.m, data.E):
-            kwargs["ccp_data"] = data
+    # The CD path is decided here, where the form is still concrete (the
+    # static equality pattern is lifted for the kernel); single device AND
+    # mesh runs (the mesh path maps the kernel per shard via shard_map).
+    from ..solvers.coord_descent_fused import static_eq_idx
+    if kwargs.get("eq_idx", None) is None:
+        kwargs["eq_idx"] = static_eq_idx(form)
+    kwargs["cd_path"] = _cd_path(form, kwargs)
 
     if mesh is not None:
         axis = list(mesh.shape.keys())[0]
@@ -282,13 +237,13 @@ def solve_restarts(form: QCQPForm, num_restarts: int, key: jax.Array,
                            sdr_sampler=sdr_sampler, spectral_sol=spectral_sol)
         if mesh is not None:
             # Shard the restart axis; the best_point reduction then lowers to
-            # cross-device collectives over ICI.
+            # cross-device collectives.
             xs = jax.lax.with_sharding_constraint(xs, restart_sharding)
-        if mesh is not None and kwargs.get("use_fused", False):
-            # pallas_call has no SPMD partitioning rule, so the fused kernel
-            # is mapped per shard: each device runs its own pallas_call on
-            # its local restart tile (restarts are independent; no
-            # collectives inside the chain).
+        if mesh is not None and kwargs["cd_path"] == routing.KERNEL:
+            # pallas_call has no SPMD partitioning rule, so the kernel is
+            # mapped per shard: each device runs its own pallas_call on its
+            # local restarts (restarts are independent; no collectives
+            # inside the chain).
             from jax import shard_map
             local = lambda f, xs_l: improve_chain(f, xs_l, improve, **kwargs)
             # check_vma=False: pallas_call out_shapes carry no varying-mesh

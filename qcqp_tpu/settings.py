@@ -1,6 +1,6 @@
 """Method-constant registry.
 
-TPU-native re-implementation of the reference registry
+Re-implementation of the reference registry
 (reference: qcqp/settings.py:25-36): the same seven public method constants
 plus the two new device-native methods this framework adds.
 """

@@ -7,7 +7,7 @@ per-constraint projections that the reference runs in a Python loop (the
 author's `TODO: parallel x/u-updates`, qcqp.py:234) are one batched
 eigh-rotate-bisect-rotate kernel here (kernels/projection.py), so each ADMM
 iteration is two (m,n,n)x(m,n) batched matmuls plus lockstep scalar work —
-MXU-shaped, and vmappable over restarts on top.
+matmul-shaped, and vmappable over restarts on top.
 
 The z-update factorization of 2 (P0 + rho m I) is a dense Cholesky computed
 once per rho (the device analog of the reference's cached SuperLU

@@ -1,21 +1,19 @@
-"""Batch-level coordinate descent with the fused Pallas phase-1 kernel.
+"""Batched float32 coordinate descent: the routed CD improve paths.
 
-The vmapped per-restart CD (solvers/coord_descent.py) leaves the phase-1
-slack bisection as ~17 separate XLA fusions per coordinate with HBM
-round-trips between them.  This variant restructures phase 1 at the batch
-level — state (R, n) / (R, m+1) — so the entire bisection for each
-coordinate step runs inside one pallas_call over 128-restart lane tiles
-(kernels/onevar_pallas.py).
+Two batched paths share the reference's two-phase improve (reference:
+qcqp/qcqp.py:101-192) and differ in how a coordinate step is computed:
 
-Float behavior: boundary comparisons in the fused kernel carry a ~1e-6
-relative slop (see onevar_pallas._feas_rows) and the parity contract with
-the unfused path is statistical — identical acceptance rules, occasionally
-different accepted slacks at ulp-tangency oracles.  Quality is asserted in
-tests (never worse than the start; matches the sequential reference within
-bisection granularity on >90% of lanes).
+  * "kernel": the two-phase sweep kernel (kernels/cd_sweep_pallas.py,
+    Pallas through Triton), one program per block of restarts;
+  * "percoord": phase 1 at the batch level with the (R, m+1, n) gradient
+    cache and the batched slack bisection of kernels/onevar_batch.py per
+    coordinate, then the vmapped phase 2 of solvers/coord_descent.py.  It
+    takes any n and a traced equality pattern.
 
-Phase 2 reuses the unfused per-restart path (it has no inner bisection to
-fuse).
+Float behavior: boundary comparisons carry a ~1e-6 relative slop (see
+onevar_batch._canon_leq) and the parity contract with the float64 path is
+statistical — identical acceptance rules, occasionally different accepted
+slacks at ulp-tangency oracles.  Quality is asserted in tests.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import QCQPForm
-from ..kernels.onevar_pallas import LANES, phase1_coordinate_update
+from ..kernels.onevar_batch import phase1_coordinate_update
 from .coord_descent import coord_descent_phase2
 
 N_BISECT = 40
@@ -51,10 +49,9 @@ def _viols_batch(form: QCQPForm, F):
 
 
 def coord_descent_phase1_fused(form: QCQPForm, xs, num_iters=1000,
-                               viol_tol=1e-2, tol=1e-4, interpret=False,
-                               eq_idx=None):
-    """Batched phase 1 (reference: qcqp/qcqp.py:101-148) with the Pallas
-    bisection kernel.  xs: (R, n), R a multiple of 128 (caller pads)."""
+                               viol_tol=1e-2, tol=1e-4, eq_idx=None):
+    """Batched phase 1 (reference: qcqp/qcqp.py:101-148) with the batched
+    slack bisection per coordinate.  xs: (R, n)."""
     R, n = xs.shape
     m = form.m
     Pdiag = jnp.diagonal(form.P, axis1=1, axis2=2)      # (m+1, n)
@@ -82,7 +79,7 @@ def coord_descent_phase1_fused(form: QCQPForm, xs, num_iters=1000,
         v = phase1_coordinate_update(
             t2c, t1c, t0c, eq_rows, active, xk, viol,
             tol=tol, viol_tol=viol_tol, n_bisect=N_BISECT,
-            interpret=interpret, eq_idx=eq_idx).astype(x.dtype)
+            eq_idx=eq_idx).astype(x.dtype)
         v = jnp.where(alive, v, xk)
         accept = v != xk
 
@@ -115,96 +112,61 @@ def coord_descent_phase1_fused(form: QCQPForm, xs, num_iters=1000,
     return x
 
 
-# VMEM budget for the whole-sweep mega-kernel: P + P1 copies plus working
-# values must fit the ~16 MB/core VMEM (kernels/cd_sweep_pallas.py).
-_MEGA_VMEM_BUDGET = 10 * 2**20
-
-
-def _mega_fits(form: QCQPForm) -> bool:
-    k1, n = form.P.shape[0], form.P.shape[-1]
-    npad = -(-n // 8) * 8
-    return 2 * k1 * npad * 128 * 4 < _MEGA_VMEM_BUDGET if n <= 128 else False
-
-
-# Large-n note (round 3): an HBM-streaming variant of the mega-kernel
-# (coordinate slabs double-buffer-DMA'd from HBM, whole sweep loop in one
-# pallas_call) was built and measured on v5e at n=256/m=20: 125-138
-# restarts/s vs 4322 restarts/s for the per-coordinate fused path below —
-# XLA already pipelines the gradient-cache HBM traffic well, and the mega
-# kernel's advantage is VMEM residency, which streaming by definition
-# lacks (group-DMA amortization of the ~100us scalar DMA sync made no
-# difference).  The variant was deleted; n > 128 problems route through
-# coord_descent_phase1_fused + the Pallas bisection kernel.
+def static_eq_idx(form: QCQPForm):
+    """The equality pattern as a static tuple, or None when it is traced."""
+    try:
+        return tuple(int(i) for i in np.nonzero(np.asarray(form.is_eq))[0])
+    except jax.errors.TracerArrayConversionError:
+        return None
 
 
 def improve_coord_descent_fused(form: QCQPForm, xs, num_iters=1000,
                                 viol_tol=1e-2, tol=1e-4, phase1=True,
-                                interpret=False, eq_idx=None, mega=None):
-    """Batched two-phase CD with the fused phase-1 kernel.
+                                path="kernel", interpret=False, eq_idx=None):
+    """Batched two-phase CD on a float32 path ("kernel" or "percoord"; see
+    the module docstring).  xs (R, n).
 
-    xs (R, n); R is padded internally to a multiple of 128.
-
-    When `form.is_eq` is concrete (the common case: the form is built on the
-    host and closed over or passed in at top level), the equality pattern is
-    lifted to a static tuple so the Pallas kernel specializes on it — the
-    reversed rows of inequality constraints are skipped structurally instead
-    of computed-and-masked (~1.3x at the bench's 50/50 eq mix).  Under an
-    outer trace where `is_eq` is abstract, the generic data-dependent kernel
-    is used; pass `eq_idx` explicitly to force specialization there.
-
-    mega: run the whole phase-1 loop in one pallas_call (P resident in VMEM,
-    no per-coordinate kernel launches or gradient-cache HBM traffic;
-    kernels/cd_sweep_pallas.py).  Default: on whenever the eq pattern is
-    static and the problem fits the VMEM budget.
+    "kernel" needs a static equality pattern:
+    `eq_idx`, or `form.is_eq` concrete (the form built on the host and
+    closed over or passed in at top level).  interpret=True runs the kernel
+    in the Pallas interpreter (CPU tests).
     """
     if eq_idx is None:
-        try:
-            eq_idx = tuple(int(i) for i in
-                           np.nonzero(np.asarray(form.is_eq))[0])
-        except Exception:   # is_eq is a tracer: keep the generic kernel
-            eq_idx = None
-    if mega is None:
-        mega = eq_idx is not None and _mega_fits(form)
+        eq_idx = static_eq_idx(form)
+    if path == "kernel" and eq_idx is None:
+        raise ValueError(f"CD path {path!r} needs a static equality pattern")
     return _improve_cd_fused(form, xs, num_iters=num_iters,
                              viol_tol=viol_tol, tol=tol, phase1=phase1,
-                             interpret=interpret, eq_idx=eq_idx,
-                             mega=bool(mega))
+                             path=path, interpret=interpret,
+                             eq_idx=None if eq_idx is None else tuple(eq_idx))
 
 
 @partial(jax.jit, static_argnames=("num_iters", "viol_tol", "tol", "phase1",
-                                   "interpret", "eq_idx", "mega"))
+                                   "path", "interpret", "eq_idx"))
 def _improve_cd_fused(form: QCQPForm, xs, num_iters=1000,
-                      viol_tol=1e-2, tol=1e-4, phase1=True,
-                      interpret=False, eq_idx=None, mega=False):
-    R = xs.shape[0]
-    R_pad = -(-R // LANES) * LANES
-    xs_p = jnp.pad(xs, ((0, R_pad - R), (0, 0))) if R_pad != R else xs
-
-    if mega and eq_idx is not None:
-        # Whole two-phase improve in one pallas_call: phase 1, the per-lane
-        # feasibility gate, and phase 2 all stay in VMEM (no XLA phase-2
-        # segment dragging the (R, m+1, n) gradient cache through HBM per
-        # coordinate).
+                      viol_tol=1e-2, tol=1e-4, phase1=True, path="kernel",
+                      interpret=False, eq_idx=None):
+    if path == "kernel":
         from ..kernels.cd_sweep_pallas import two_phase_sweeps
-        xs_p = two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs_p,
-                                num_iters=num_iters, viol_tol=viol_tol,
-                                tol=tol, phase1=phase1,
-                                interpret=interpret).astype(xs_p.dtype)
-        return xs_p[:R]
+        return two_phase_sweeps(
+            form.P, form.q, form.r, eq_idx, xs, num_iters=num_iters,
+            viol_tol=viol_tol, tol=tol, phase1=phase1,
+            interpret=interpret).astype(xs.dtype)
+    if path != "percoord":
+        raise ValueError(f"unknown CD path {path!r}")
     if phase1:
-        xs_p = coord_descent_phase1_fused(form, xs_p, num_iters, viol_tol,
-                                          tol, interpret, eq_idx)
+        xs = coord_descent_phase1_fused(form, xs, num_iters, viol_tol, tol,
+                                        eq_idx)
     from ..core import max_violation
 
     # Phase 2 gate (reference: qcqp/qcqp.py:189-190), batched.  NOT a vmapped
-    # lax.cond: batching a cond broadcasts branch-closure constants per lane
-    # (form.P becomes a (R, m+1, n, n) while-loop carry — 23 GB at the bench
-    # shape).  Both branches of a batched cond execute anyway, so running
-    # phase 2 for every lane and selecting by the feasibility mask is the
-    # same work without the broadcast.
-    feas = jax.vmap(lambda x: max_violation(form, x))(xs_p) < viol_tol
+    # lax.cond: batching a cond broadcasts branch-closure constants per
+    # restart (form.P becomes a (R, m+1, n, n) while-loop carry — 23 GB at
+    # the bench shape).  Both branches of a batched cond execute anyway, so
+    # running phase 2 for every restart and selecting by the feasibility
+    # mask is the same work without the broadcast.
+    feas = jax.vmap(lambda x: max_violation(form, x))(xs) < viol_tol
     x2 = jax.vmap(
         lambda x: coord_descent_phase2(form, x, num_iters, viol_tol, tol)
-    )(xs_p)
-    xs_p = jnp.where(feas[:, None], x2, xs_p)
-    return xs_p[:R]
+    )(xs)
+    return jnp.where(feas[:, None], x2, xs)

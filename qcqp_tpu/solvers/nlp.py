@@ -3,16 +3,16 @@
 The reference hands the point to the external IPOPT interior-point NLP solver
 via PyIpopt callbacks (reference: qcqp/qcqp.py:325-364).  Interior-point
 methods are host-sequential (sparse factorizations per iteration), so the
-TPU-native equivalent is a classic augmented-Lagrangian method:
+batched device equivalent is a classic augmented-Lagrangian method:
 
     L_mu(x; lmb) = f0(x) + sum_eq [lmb_i f_i + (mu/2) f_i^2]
                  + sum_ineq (mu/2) [max(0, f_i + lmb_i/mu)^2 - (lmb_i/mu)^2]
 
 Two stages.  Stage 1: Barzilai-Borwein sweeps — one batched contraction
 per step — for cheap bulk descent.  Stage 2: a damped SEMISMOOTH
-NEWTON-CG tail (VERDICT r3 missing #2: a first-order-only polish stalled
+NEWTON-CG tail (a first-order-only polish stalled
 — and NaN'd — on ill-conditioned instances where a Newton-type method
-converges).  For a QCQP the AL Hessian is closed form and MXU-shaped:
+converges).  For a QCQP the AL Hessian is closed form and matmul-shaped:
 
     H = 2 * sum_k w_k P_k  +  sum_i a_i g_i g_i^T
 
@@ -20,14 +20,14 @@ with w the same multiplier coefficients that appear in the gradient, g_i the
 constraint gradients 2 P_i x + q_i, and a_i = mu on equality rows / active
 inequality rows (the semismooth generalized Hessian of the hinge term).
 Each Newton step is one weighted (m+1, n, n) contraction + one (n, m)x(m, n)
-Gram matmul + a fixed-trip conjugate-gradient solve (matmul-only — a
-direct linalg.solve under vmap is ~100x slower on TPU), with
+Gram matmul + a fixed-trip conjugate-gradient solve (matmul-only, so it
+vmaps into batched matmuls), with
 Levenberg-Marquardt damping against indefiniteness and Armijo
 backtracking on the AL value.
 
 Outer loop: first-order multiplier updates and capped mu growth when the
-violation stalls.  Both loops are while_loops with KKT-residual exits
-(VERDICT r3 weak #6): the inner loop stops when the AL gradient is small —
+violation stalls.  Both loops are while_loops with KKT-residual exits:
+the inner loop stops when the AL gradient is small —
 which, under first-order multiplier updates, IS the Lagrangian stationarity
 residual at the updated multipliers — and the outer loop stops when that
 stationarity residual and the feasibility violation are both below
@@ -103,10 +103,10 @@ def improve_nlp(form: QCQPForm, x0, num_outer: int = 3, num_inner: int = 20,
     Two stages: bb_outer_n x bb_inner Barzilai-Borwein sweeps for cheap
     bulk descent, then a num_outer x num_inner damped Newton-CG tail for
     the second-order KKT quality (oracle-pinned in tests/test_nlp.py).
-    The default schedule was re-ablated round 5: 10x80 BB + 3x20 Newton
-    is +42% throughput (2868 vs 2022 restarts/s at the bench shape) at a
-    BETTER median violation (0.0080 vs 0.0103) than round 4's 15x100 +
-    4x25 — the KKT early exits mean the extra budget was mostly idle.
+    The default schedule 10x80 BB + 3x20 Newton reaches a BETTER median
+    violation at the bench shape (0.0080 vs 0.0103) than 15x100 + 4x25
+    with less work — the KKT early exits mean the extra budget was mostly
+    idle.
     The Newton loops exit early on the KKT residual (see module
     docstring); tolerances are floored at 100*eps(dtype) so the f32
     device path can actually reach them.
@@ -123,8 +123,8 @@ def improve_nlp(form: QCQPForm, x0, num_outer: int = 3, num_inner: int = 20,
     # Cheap first-order sweeps (one batched contraction per step) carry
     # the iterate most of the way; the Newton-CG stage below then delivers
     # the second-order tail quality the oracle tests pin.  A Newton-only
-    # schedule costs ~10x the wall clock for the same final point
-    # (measured on the bench workload, round 4).
+    # schedule does an (n, n) CG solve per step from the first sweep on,
+    # where a BB step is one contraction.
     def bb_outer(carry, _):
         x, lmb, mu, viol_prev = carry
         x_in = x
@@ -175,9 +175,8 @@ def improve_nlp(form: QCQPForm, x0, num_outer: int = 3, num_inner: int = 20,
             Hd = H + damp * scale * eye
 
             # Inexact Newton direction by fixed-trip conjugate gradient:
-            # pure (n, n) x (n,) matvecs, which vmap into batched MXU work
-            # — a direct jnp.linalg.solve under vmap is ~100x slower on
-            # TPU and was the round-4 nlp throughput regression.
+            # pure (n, n) x (n,) matvecs, which vmap into batched matmuls
+            # (a batched jnp.linalg.solve on the GPU is not measured).
             def cg_body(_, s):
                 xcg, rcg, pcg, rs = s
                 Hp = Hd @ pcg

@@ -75,3 +75,90 @@ def test_admm_batch_matches_single():
     for i in range(3):
         single = np.asarray(improve_admm(form, xs[i], num_iters=50))
         np.testing.assert_allclose(batched[i], single, atol=1e-8)
+
+
+def _random_form32(n, m, seed, eq_frac=0.5):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    is_eq = rng.random(m) < eq_frac
+    return core.QCQPForm(jnp.asarray(P, jnp.float32),
+                         jnp.asarray(q, jnp.float32),
+                         jnp.asarray(r, jnp.float32), jnp.asarray(is_eq))
+
+
+def test_admm_batch_f32_never_worse_than_start():
+    """The better-folds (reference: qcqp.py:281,284-285) keep every batched
+    float32 restart at least as good as its start."""
+    form = _random_form32(10, 7, 5)
+    rng = np.random.default_rng(9)
+    xs = jnp.asarray(rng.standard_normal((4, 10)), jnp.float32)
+    out = improve_admm_batch(form, xs, num_iters=60)
+    for i in range(4):
+        b = core.better(form, out[i], xs[i])
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(out[i]))
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_admm_batch_odd_restart_counts(R):
+    form = _random_form32(6, 4, 3)
+    xs = jnp.asarray(np.random.default_rng(4).standard_normal((R, 6)),
+                     jnp.float32)
+    out = improve_admm_batch(form, xs, num_iters=30)
+    assert out.shape == (R, 6)
+    assert np.isfinite(np.asarray(out)).all()
+
+
+def test_admm_batch_phase1_false():
+    """phase1=False skips straight to the objective phase (the reference
+    improve kwarg, qcqp.py:255) and still never ends worse than the
+    start."""
+    form = _random_form32(6, 4, 7)
+    xs = jnp.asarray(np.sign(np.random.default_rng(8).standard_normal((2, 6))),
+                     jnp.float32)
+    out = improve_admm_batch(form, xs, num_iters=40, phase1=False)
+    assert out.shape == (2, 6)
+    assert np.isfinite(np.asarray(out)).all()
+    for i in range(2):
+        b = core.better(form, out[i], xs[i])
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(out[i]))
+
+
+def test_admm_far_secular_root():
+    """A projection whose secular root lies far out (a concave constraint
+    with a tiny eigenvalue: ||x||^2 >= 2500) still lands feasible."""
+    n = 4
+    P = np.stack([np.eye(n), -1e-4 * np.eye(n)])
+    form = core.QCQPForm(jnp.asarray(P, jnp.float32),
+                         jnp.zeros((2, n), jnp.float32),
+                         jnp.asarray([0.0, 0.25], jnp.float32),
+                         jnp.asarray(np.zeros(1, bool)))
+    xs = jnp.asarray(0.01 * np.ones((1, n)), jnp.float32)
+    out = np.asarray(improve_admm_batch(form, xs, num_iters=200))
+    assert np.isfinite(out).all()
+    assert float(core.max_violation(form, jnp.asarray(out[0]))) < 1e-2
+
+
+def test_handler_float32_admm_takes_the_xla_improve(monkeypatch):
+    """QCQP.improve(ADMM) on a float32 handler (the GPU default dtype) runs
+    the XLA improve."""
+    import qcqp_tpu.api as api_mod
+    calls = []
+    orig = api_mod.improve_admm
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(api_mod, "improve_admm", spy)
+    rng = np.random.default_rng(0)
+    A, b = rng.standard_normal((9, 6)), rng.standard_normal(9)
+    x = qt.Variable(6)
+    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                           [qt.square(x) == 1]), dtype=np.float32)
+    h.suggest(qt.RANDOM)
+    f, v = h.improve(qt.ADMM, num_iters=60)
+    assert calls
+    assert np.isfinite(f) and np.isfinite(v)

@@ -102,7 +102,7 @@ def test_handler_checkpoint_roundtrip(tmp_path):
 
 def test_solve_scenarios_sharded_matches_replicated():
     """The 2-D (scenario x restart) sharded path returns the same best
-    points as the replicated-scenario path (VERDICT r1 item 9)."""
+    points as the replicated-scenario path."""
     from jax.sharding import Mesh
     from qcqp_tpu.parallel.scenarios import solve_scenarios_sharded
 

@@ -1,10 +1,10 @@
 """Quality curve for the relative-termination slack bisection across
-violation scales (VERDICT r2 weak item 6).
+violation scales.
 
-The fused CD kernel terminates its phase-1 slack bisection at
-es - ss <= tol + rel*max(ss, 0) with rel = 1/16 (kernels/onevar_pallas.py),
+The batched CD paths terminate their phase-1 slack bisection at
+es - ss <= tol + rel*max(ss, 0) with rel = 1/16 (kernels/onevar_batch.py),
 a deviation from the reference's absolute-tol bisection
-(/root/reference/qcqp/qcqp.py:122-131) that was quality-pinned only at the
+(reference: qcqp/qcqp.py:122-131) that was quality-pinned only at the
 bench shape.  Here the same contract — fused quality is not distributionally
 worse than the unfused absolute-tol path — is asserted with the problem data
 scaled over four orders of magnitude, which scales the violations (and hence

@@ -1,3 +1,6 @@
+"""The two-phase CD sweep kernel (kernels/cd_sweep_pallas.py), run in the
+Pallas interpreter on the CPU, against the batched XLA paths."""
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -30,20 +33,20 @@ def _viols(form, xs):
                          [(12, 7, 0.5, 0), (9, 5, 0.0, 1), (10, 4, 1.0, 2)])
 def test_mega_matches_fused_quality(n, m, eq_frac, seed):
     """Whole-sweep kernel reaches feasibility statistically on par with the
-    per-coordinate fused kernel (identical acceptance rules; trajectories may
-    diverge at ulp-tangency oracles)."""
+    per-coordinate batched path (identical acceptance rules; trajectories
+    may diverge at ulp-tangency oracles)."""
     form, eq_idx, rng = _random_form(n, m, seed, eq_frac)
     R = 128
     xs = jnp.asarray(rng.standard_normal((R, n)), jnp.float32)
 
     x_old = coord_descent_phase1_fused(form, xs, num_iters=10,
-                                       interpret=True, eq_idx=eq_idx)
+                                       eq_idx=eq_idx)
     x_new = phase1_sweeps(form.P, form.q, form.r, eq_idx, xs, num_iters=10,
                           interpret=True)
     v0, v_old, v_new = _viols(form, xs), _viols(form, x_old), _viols(form, x_new)
     # never worse than the start (documented ~1e-3 boundary slop)
     assert (v_new <= v0 + 1e-3).all()
-    # statistically on par with the per-coordinate kernel
+    # statistically on par with the per-coordinate path
     assert np.median(v_new) <= np.median(v_old) * 1.5 + 1e-2
     assert (v_new < 1e-2).mean() >= (v_old < 1e-2).mean() - 0.1
 
@@ -91,13 +94,13 @@ def test_two_phase_matches_unfused_quality(n, m, eq_frac, seed):
     v_ref, v_new = _viols(form, x_ref), _viols(form, x_new)
     o_ref, o_new = _objs(form, x_ref), _objs(form, x_new)
     feas_ref, feas_new = v_ref < 1e-2, v_new < 1e-2
-    # Margins are calibrated to the kernel's OWN trajectory-reshuffle
-    # noise, measured round 5 by perturbing the cold kernel's bisection
+    # Per-instance margins are calibrated to the kernel's OWN
+    # trajectory-reshuffle noise, measured by perturbing the bisection
     # midpoints 0.2%: feasible fraction 0.102 -> 0.023 (0.23x), median
     # violation 0.0305 -> 0.0516 (1.69x), best feasible objective -10.4 ->
     # -1.3 (scale-level swing).  Phase-1 outcomes on these barely-feasible
-    # R=128 instances are chaotic in the probe trajectory, so anything
-    # tighter gates on luck, not quality.
+    # R=128 instances are chaotic in the probe trajectory; the tighter
+    # bound is on the aggregate (test_two_phase_aggregate_quality).
     # max(): the ratio bound covers the low-feasibility chaotic regime,
     # the absolute bound binds at high feasibility — min() would let a
     # high-feasibility kernel lose 80% of its restarts unnoticed
@@ -148,3 +151,82 @@ def test_two_phase_infeasible_lanes_gated():
     if bad.any():
         np.testing.assert_allclose(np.asarray(x2)[bad], np.asarray(x1)[bad],
                                    atol=0)
+
+
+AGGREGATE_CASES = [(12, 7, 0.5, 0), (9, 5, 0.0, 1), (10, 4, 1.0, 2),
+                   (12, 7, 0.5, 3), (16, 10, 0.5, 4)]
+# Measured on these cases (kernel vs unfused, CPU): mean feasible fraction
+# 0.267 vs 0.281, mean median violation 0.234 vs 0.195 (1.20x), mean
+# best-objective gap -0.37 (the kernel's best is better on average).
+AGG_FEAS_MARGIN = 0.05
+AGG_MED_RATIO = 1.5
+AGG_GAP = 0.25
+
+
+def test_two_phase_aggregate_quality():
+    """Across instances the per-instance chaos averages out, so the
+    aggregate is held to a tight bound: mean feasible fraction, mean median
+    violation and mean best-objective gap against the unfused batched CD."""
+    feas, meds, gaps = [], [], []
+    for n, m, eq_frac, seed in AGGREGATE_CASES:
+        form, eq_idx, rng = _random_form(n, m, seed, eq_frac)
+        xs = jnp.asarray(rng.standard_normal((128, n)), jnp.float32)
+        x_ref = improve_coord_descent_batch(form, xs, num_iters=10)
+        x_new = two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
+                                 num_iters=10, interpret=True)
+        v_ref, v_new = _viols(form, x_ref), _viols(form, x_new)
+        o_ref, o_new = _objs(form, x_ref), _objs(form, x_new)
+        feas.append(((v_new < 1e-2).mean(), (v_ref < 1e-2).mean()))
+        meds.append((np.median(v_new), np.median(v_ref)))
+        if (v_ref < 1e-2).any() and (v_new < 1e-2).any():
+            best_ref = o_ref[v_ref < 1e-2].min()
+            gaps.append((o_new[v_new < 1e-2].min() - best_ref)
+                        / (1.0 + abs(best_ref)))
+    feas, meds = np.mean(feas, axis=0), np.mean(meds, axis=0)
+    assert feas[0] >= feas[1] - AGG_FEAS_MARGIN, feas
+    assert meds[0] <= AGG_MED_RATIO * meds[1] + 1e-3, meds
+    assert np.mean(gaps) <= AGG_GAP, gaps
+
+
+@pytest.mark.parametrize("phase1", [True, False])
+@pytest.mark.parametrize("n,m", [(100, 50), (10, 15), (7, 3), (128, 63)])
+def test_kernel_lowers_for_cuda(n, m, phase1):
+    """The kernel passes the Pallas->Triton lowering for CUDA (which rejects
+    non-power-of-two blocks and unsupported primitives) at every padding
+    regime, without a GPU."""
+    P = jnp.zeros((m + 1, n, n), jnp.float32)
+    q = jnp.zeros((m + 1, n), jnp.float32)
+    r = jnp.zeros((m + 1,), jnp.float32)
+    xs = jnp.zeros((40, n), jnp.float32)
+    eq_idx = tuple(range(0, m, 2))
+    f = lambda P, q, r, xs: two_phase_sweeps(P, q, r, eq_idx, xs,
+                                             num_iters=10, phase1=phase1)
+    lowered = jax.jit(f).trace(P, q, r, xs).lower(
+        lowering_platforms=("cuda",))
+    assert "xla.gpu.triton" in lowered.as_text()
+
+
+def test_padding_leaves_x_unchanged():
+    """Zero coordinates and zero constraint rows are inert: phase 1 on a
+    problem padded with them by hand gives the same real coordinates and
+    leaves the extra ones at 0."""
+    form, eq_idx, rng = _random_form(7, 3, 11)
+    n, m = 7, 3
+    P = np.zeros((m + 5, n + 4, n + 4), np.float32)
+    P[:m + 1, :n, :n] = np.asarray(form.P)
+    q = np.zeros((m + 5, n + 4), np.float32)
+    q[:m + 1, :n] = np.asarray(form.q)
+    r = np.full(m + 5, -1.0, np.float32)
+    r[:m + 1] = np.asarray(form.r)
+    xs = rng.standard_normal((32, n)).astype(np.float32)
+    xs_pad = np.concatenate([xs, np.zeros((32, 4), np.float32)], axis=1)
+    out = np.asarray(phase1_sweeps(form.P, form.q, form.r, eq_idx,
+                                   jnp.asarray(xs), num_iters=5,
+                                   interpret=True))
+    out_pad = np.asarray(phase1_sweeps(jnp.asarray(P), jnp.asarray(q),
+                                       jnp.asarray(r), eq_idx,
+                                       jnp.asarray(xs_pad), num_iters=5,
+                                       interpret=True))
+    np.testing.assert_array_equal(out_pad[:, n:], 0.0)
+    np.testing.assert_array_equal(out_pad[:, :n], out)
+    assert not np.array_equal(out, xs)

@@ -3,8 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qcqp_tpu.kernels.eigh_pallas import (tournament_permutation, eigh_jacobi,
-                                          eigh_jacobi_vec)
+from qcqp_tpu.kernels.jacobi import tournament_permutation
 
 
 @pytest.mark.parametrize("n", [4, 8, 64, 128])
@@ -17,65 +16,3 @@ def test_tournament_covers_all_pairs(n):
             seen.add(tuple(sorted((elems[2 * i], elems[2 * i + 1]))))
         elems = elems[sigma]
     assert len(seen) == n * (n - 1) // 2
-
-
-@pytest.mark.parametrize("shape", [(3, 12), (2, 100), (1, 128)])
-def test_eigh_jacobi_matches_lapack(shape):
-    B, n0 = shape
-    rng = np.random.default_rng(0)
-    A = rng.standard_normal((B, n0, n0)).astype(np.float32)
-    A = 0.5 * (A + np.swapaxes(A, -1, -2))
-    lam, V = eigh_jacobi(jnp.asarray(A), sweeps=10, interpret=True)
-    lam_ref = np.linalg.eigvalsh(A)
-    scale = np.abs(lam_ref).max()
-    assert np.abs(np.asarray(lam) - lam_ref).max() / scale < 1e-4
-    rec = np.einsum("bij,bj,bkj->bik", np.asarray(V), np.asarray(lam),
-                    np.asarray(V))
-    assert np.abs(rec - A).max() / scale < 1e-4
-    # eigenvectors orthogonal
-    VtV = np.einsum("bji,bjk->bik", np.asarray(V), np.asarray(V))
-    assert np.abs(VtV - np.eye(n0)).max() < 1e-4
-
-
-@pytest.mark.parametrize("shape", [(3, 12), (2, 100), (1, 128), (17, 32)])
-def test_eigh_jacobi_vec_matches_lapack(shape):
-    B, n0 = shape
-    rng = np.random.default_rng(0)
-    A = rng.standard_normal((B, n0, n0)).astype(np.float32)
-    A = 0.5 * (A + np.swapaxes(A, -1, -2))
-    lam, V = eigh_jacobi_vec(jnp.asarray(A), sweeps=10, interpret=True)
-    lam_ref = np.linalg.eigvalsh(A)
-    scale = np.abs(lam_ref).max()
-    assert np.abs(np.asarray(lam) - lam_ref).max() / scale < 1e-4
-    rec = np.einsum("bij,bj,bkj->bik", np.asarray(V), np.asarray(lam),
-                    np.asarray(V))
-    assert np.abs(rec - A).max() / scale < 1e-4
-    VtV = np.einsum("bji,bjk->bik", np.asarray(V), np.asarray(V))
-    assert np.abs(VtV - np.eye(n0)).max() < 1e-4
-
-
-def test_eigh_jacobi_vec_batch_padding():
-    # batch not a multiple of `block`: padded matrices must not leak
-    rng = np.random.default_rng(2)
-    A = rng.standard_normal((5, 16, 16)).astype(np.float32)
-    A = 0.5 * (A + np.swapaxes(A, -1, -2))
-    lam, V = eigh_jacobi_vec(jnp.asarray(A), sweeps=10, block=4,
-                             interpret=True)
-    lam_ref = np.linalg.eigvalsh(A)
-    assert np.abs(np.asarray(lam) - lam_ref).max() < 1e-4 * np.abs(lam_ref).max()
-
-
-def test_eigh_jacobi_psd_projection_use():
-    # the intended consumer: clamp-reconstruct PSD projection
-    rng = np.random.default_rng(1)
-    n0 = 24
-    A = rng.standard_normal((1, n0, n0)).astype(np.float32)
-    A = 0.5 * (A + np.swapaxes(A, -1, -2))
-    lam, V = eigh_jacobi(jnp.asarray(A), sweeps=10, interpret=True)
-    lam_c = jnp.maximum(lam, 0.0)
-    proj = np.einsum("bij,bj,bkj->bik", np.asarray(V), np.asarray(lam_c),
-                     np.asarray(V))
-    # compare against numpy eigh-based projection
-    w, Q = np.linalg.eigh(A[0])
-    ref = (Q * np.maximum(w, 0)) @ Q.T
-    assert np.abs(proj[0] - ref).max() < 1e-3

@@ -1,6 +1,6 @@
 """float32 path coverage on the CPU backend.
 
-The TPU runs everything in float32; these tests pin that the solvers stay
+The GPU paths run in float32; these tests pin that the solvers stay
 correct at that precision (tolerances were chosen for f64 by the reference
 but hold in f32 for O(1)-scaled data).
 """
@@ -65,7 +65,7 @@ def test_nlp_f32(form32):
 def test_sdr_f32_bound_close_to_f64(form32):
     form, _, _ = form32
     # device='cpu' here either way; exercise the f32 data path with the
-    # warm cone projection (the TPU configuration)
+    # warm cone projection
     from qcqp_tpu.solvers.sdp import _sdr_data, solve_sdp
     s32 = solve_sdp(_sdr_data(form), max_iters=8000, tol=2e-5,
                     psd_method="warm")

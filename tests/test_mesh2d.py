@@ -79,7 +79,7 @@ def test_mesh2d_rejects_bad_restart_count():
 
 def test_mesh2d_large_m_512_parity():
     """The use case mesh2d advertises — m in the hundreds sharded over the
-    constraint axis — exercised at m=512 (VERDICT r3 weak #7: previously
+    constraint axis — exercised at m=512 (previously
     untested above m=7): parity with the single-device batched ADMM at the
     same iteration budget, plus monotone violation."""
     form = _random_form(n=16, m=512, seed=3)

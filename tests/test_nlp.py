@@ -5,7 +5,7 @@ second-order interior-point solver; the replacement is first-order.  These
 tests pin its quality against an independent oracle (scipy SLSQP, a
 sequential quadratic programming method — second-order model like IPOPT's)
 on seeded instances where local = global (convex feasible sets), per
-VERDICT r3 item 7.
+the reference's NLP polish.
 """
 
 import numpy as np
@@ -67,7 +67,7 @@ def _slsqp_solve(form: QCQPForm, x0):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_nlp_matches_slsqp_oracle(seed):
     """Final objectives agree with the SQP oracle to 1e-4 on convex
-    instances (VERDICT r3 item 7: no oracle evidence existed either way)."""
+    instances."""
     form = _convex_instance(seed)
     rng = np.random.default_rng(100 + seed)
     x0 = rng.standard_normal(form.n)
@@ -117,8 +117,7 @@ def test_nlp_nonconvex_still_feasible():
 
 def test_nlp_explicit_tolerance_kwargs():
     """grad_tol/feas_tol are trace-time constants (jit static args): passing
-    them explicitly must not raise ConcretizationTypeError (ADVICE r4
-    medium) and must still produce an improved point."""
+    them explicitly must not raise ConcretizationTypeError and must still produce an improved point."""
     form = _convex_instance(5, n=6, m_in=3)
     x0 = jnp.asarray(np.random.default_rng(5).standard_normal(6))
     x = improve_nlp(form, x0, grad_tol=1e-6, feas_tol=1e-6)

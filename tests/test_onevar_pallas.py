@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import pytest
 
 from qcqp_tpu.kernels.onevar import OneVarConstraints, phase1_feasible_point
-from qcqp_tpu.kernels.onevar_pallas import phase1_coordinate_update
+from qcqp_tpu.kernels.onevar_batch import phase1_coordinate_update
 
 
 def _reference_bisect(con, xk, viol, tol=1e-4, viol_tol=1e-2, n_bisect=40):
     """jnp reference of the phase-1 per-coordinate bisection (f32).
 
-    Returns (v, accepted_slack).  Bitwise witness equality with the Pallas
-    kernel is not expected — the two compile the same float expressions
+    Returns (v, accepted_slack).  Bitwise witness equality with the batched
+    update is not expected — the two compile the same float expressions
     separately (FMA contraction moves boundary roots by ~1 ulp), so
     comparisons are on achieved slack / violation, not on x.
     """
@@ -50,8 +50,7 @@ def test_pallas_phase1_matches_reference_quality(seed):
 
     v = np.asarray(phase1_coordinate_update(
         jnp.asarray(p), jnp.asarray(q), jnp.asarray(r), jnp.asarray(eq),
-        jnp.asarray(act), jnp.asarray(xk), jnp.asarray(viol),
-        interpret=True))
+        jnp.asarray(act), jnp.asarray(xk), jnp.asarray(viol)))
 
     new_viol = _viol_of(p, q, r, eq, act, v)
     # 1) never worse than the starting violation (up to boundary slop)
@@ -59,9 +58,9 @@ def test_pallas_phase1_matches_reference_quality(seed):
 
     # 2) as good as the sequential reference within the kernel's documented
     # termination: the bracket stops at es - ss <= tol + REL_SLACK_TOL *
-    # max(ss, 0) (onevar_pallas._bisect_accept), so the achieved slack can
+    # max(ss, 0) (onevar_batch._bisect_accept), so the achieved slack can
     # sit up to a (1 + rel) factor above the absolute-tol reference's.
-    from qcqp_tpu.kernels.onevar_pallas import REL_SLACK_TOL
+    from qcqp_tpu.kernels.onevar_batch import REL_SLACK_TOL
     for lane in range(0, R, 19):
         con = OneVarConstraints(
             jnp.asarray(p[:, lane]), jnp.asarray(q[:, lane]),
@@ -91,9 +90,9 @@ def test_pallas_phase1_static_eq_idx_matches_generic(eq_frac):
 
     args = (jnp.asarray(p), jnp.asarray(q), jnp.asarray(r), jnp.asarray(eq),
             jnp.asarray(act), jnp.asarray(xk), jnp.asarray(viol))
-    v_gen = np.asarray(phase1_coordinate_update(*args, interpret=True))
+    v_gen = np.asarray(phase1_coordinate_update(*args))
     v_split = np.asarray(phase1_coordinate_update(
-        *args, interpret=True,
+        *args,
         eq_idx=tuple(int(i) for i in np.nonzero(eq_row)[0])))
 
     # identical candidate set => identical bisection trajectory; allow the
@@ -118,8 +117,7 @@ def test_pallas_phase1_accepts_only_improvements():
 
     v = np.asarray(phase1_coordinate_update(
         jnp.asarray(p), jnp.asarray(q), jnp.asarray(r), jnp.asarray(eq),
-        jnp.asarray(act), jnp.asarray(xk), jnp.asarray(viol),
-        interpret=True))
+        jnp.asarray(act), jnp.asarray(xk), jnp.asarray(viol)))
     new_viol = _viol_of(p, q, r, eq, act, v)
     assert (new_viol <= viol + 1e-3).all()
     # convex feasible constraints from a far start: most lanes must improve a lot

@@ -54,7 +54,7 @@ def test_solve_restarts_unsharded():
 
 
 def test_solve_restarts_fused_path():
-    """use_fused routes CD through the Pallas kernel (interpret on CPU) and
+    """use_fused routes CD through the sweep kernel (interpret on CPU) and
     still reaches the boolean-LS optimum region."""
     form, A, b = boolean_ls_form(n=8, m=12, seed=3)
     form32 = core.QCQPForm(form.P.astype(jnp.float32),
@@ -71,7 +71,7 @@ def test_solve_restarts_fused_path():
 
 
 def test_solve_restarts_fused_sharded():
-    """Mesh + use_fused maps the Pallas chain per shard (shard_map) and
+    """Mesh + use_fused maps the kernel chain per shard (shard_map) and
     matches the unsharded fused run's best point quality."""
     form, A, b = boolean_ls_form(n=8, m=12, seed=3)
     form32 = core.QCQPForm(form.P.astype(jnp.float32),
@@ -88,15 +88,15 @@ def test_solve_restarts_fused_sharded():
 
 
 def test_fused_auto_on_under_mesh(monkeypatch):
-    """With an accelerator-like _fused_default, solve_restarts(mesh=...)
-    engages the fused CD path automatically (no explicit use_fused=True) —
-    ROADMAP 5b / VERDICT r1 item 5."""
+    """When the router sees a GPU, solve_restarts(mesh=...) engages the CD
+    sweep kernel automatically (no explicit use_fused=True), mapped per
+    shard."""
     from qcqp_tpu.parallel import restarts as rmod
     form, _, _ = boolean_ls_form(n=8, m=12, seed=3)
     form32 = core.QCQPForm(form.P.astype(jnp.float32),
                            form.q.astype(jnp.float32),
                            form.r.astype(jnp.float32), form.is_eq)
-    monkeypatch.setattr(rmod, "_fused_default", lambda form: True)
+    monkeypatch.setattr(rmod.jax, "default_backend", lambda: "gpu")
 
     import qcqp_tpu.solvers.coord_descent_fused as cdf
     calls = []
@@ -109,71 +109,8 @@ def test_fused_auto_on_under_mesh(monkeypatch):
     monkeypatch.setattr(cdf, "improve_coord_descent_fused", spy)
     x, f, v = solve_restarts(form32, 128, jax.random.PRNGKey(0),
                              mesh=make_mesh(), interpret=True, num_iters=10)
-    assert calls, "fused kernel was not engaged under the mesh"
+    assert calls, "the CD kernel was not engaged under the mesh"
     assert float(v) < 1e-2
-
-
-def test_admm_fused_auto_on(monkeypatch):
-    """With an accelerator-like _fused_default, solve_restarts(improve=ADMM)
-    routes through the whole-phase Pallas mega-kernel — VERDICT r2 item 2."""
-    from qcqp_tpu.parallel import restarts as rmod
-    form, _, _ = boolean_ls_form(n=8, m=12, seed=3)
-    form32 = core.QCQPForm(form.P.astype(jnp.float32),
-                           form.q.astype(jnp.float32),
-                           form.r.astype(jnp.float32), form.is_eq)
-    monkeypatch.setattr(rmod, "_fused_default", lambda form: True)
-
-    import qcqp_tpu.kernels.admm_pallas as ap
-    calls = []
-    orig = ap.improve_admm_fused
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(ap, "improve_admm_fused", spy)
-    # improve_chain imports the symbol inside the function body, so patch at
-    # the source module; single-device and mesh routes both engage it.
-    x, f, v = solve_restarts(form32, 128, jax.random.PRNGKey(0),
-                             improve=qt.ADMM, interpret=True, num_iters=10)
-    assert calls, "fused ADMM was not engaged on the single-device path"
-    calls.clear()
-    x, f, v = solve_restarts(form32, 128, jax.random.PRNGKey(0),
-                             improve=[qt.COORD_DESCENT, qt.ADMM],
-                             mesh=make_mesh(), interpret=True, num_iters=10)
-    assert calls, "fused ADMM was not engaged under the mesh"
-    assert np.asarray(x).shape == (form.n,)
-    assert np.isfinite(float(f))
-
-
-def test_handler_improve_admm_fused(monkeypatch):
-    """QCQP.improve(ADMM) routes through the mega kernel when fused is on
-    (use_fused=True mimics the accelerator default on the CPU backend)."""
-    n = 6
-    rng = np.random.default_rng(0)
-    A = rng.standard_normal((9, n))
-    b = rng.standard_normal(9)
-    x = qt.Variable(n)
-    prob = qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
-                      [qt.square(x) == 1])
-    q = qt.QCQP(prob, dtype=np.float32)
-    q.suggest(qt.RANDOM)
-
-    import qcqp_tpu.kernels.admm_pallas as ap
-    calls = []
-    orig_improve = ap.improve_admm_fused
-
-    def spy(*a, **kw):
-        calls.append(1)
-        return orig_improve(*a, **kw)
-
-    monkeypatch.setattr(ap, "improve_admm_fused", spy)
-    f1, v1 = q.improve(qt.ADMM, use_fused=True, interpret=True, num_iters=60)
-    assert calls, "handler ADMM did not hit the fused kernel"
-    assert np.isfinite(f1)
-    # same rho cache key reused on the second call
-    q.improve(qt.ADMM, use_fused=True, interpret=True, num_iters=60)
-    assert len(q._admm_fused) == 1
 
 
 def test_fused_sharded_padding_edges(monkeypatch):
@@ -194,7 +131,7 @@ def test_fused_sharded_padding_edges(monkeypatch):
 
 def test_improve_chain_forwards_stage_kwargs(monkeypatch):
     """Chained improve forwards the filtered kwargs to the DCCP and IPOPT
-    stages like QCQP._improve_one does (VERDICT r1 item 6)."""
+    stages like QCQP._improve_one does."""
     form, _, _ = boolean_ls_form(n=4, m=6, seed=9)
     xs = jnp.asarray(np.random.default_rng(0).standard_normal((2, form.n)))
 

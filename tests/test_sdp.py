@@ -126,7 +126,7 @@ def test_warm_jacobi_cone_matches_eigh():
 
 
 def test_jacobi_sweeps_pure_jnp():
-    from qcqp_tpu.kernels.eigh_pallas import jacobi_sweeps
+    from qcqp_tpu.kernels.jacobi import jacobi_sweeps
     import jax.numpy as jnp
     rng = np.random.default_rng(5)
     for n0 in (7, 12):  # odd size exercises the padding path
@@ -174,7 +174,7 @@ def test_warm_start_batch_roundtrip():
 
 
 # ---------------------------------------------------------------------------
-# Infeasibility / unboundedness certificates (VERDICT r3 missing #1: the
+# Infeasibility / unboundedness certificates (the
 # reference's conic solvers classify failure via the homogeneous self-dual
 # embedding, qcqp/qcqp.py:94-95; the splitting solver now certifies both
 # cases from its iterate deltas in << max_iters).
@@ -248,7 +248,7 @@ def test_certificates_classify_quickly_and_feasible_unaffected():
 
 def test_anderson_acceleration_iteration_count():
     """Anderson acceleration converges the boolean-LS SDR in a fraction of
-    the plain splitting iteration count (VERDICT r3 weak #2: ~3000 plain
+    the plain splitting iteration count (~3000 plain
     iterations were the gap to interior-point-class latency; measured ~30x
     fewer on maxcut, ~12x here)."""
     np.random.seed(1)
@@ -277,7 +277,7 @@ def test_anderson_acceleration_iteration_count():
 
 def test_affine_farkas_precheck_host():
     """The host-f64 numpy Farkas pre-check (run before any f32 device
-    attempt, VERDICT r4 #5) classifies contradictory equalities and leaves
+    attempt) classifies contradictory equalities and leaves
     feasible instances alone."""
     n = 3
     P = np.zeros((3, n, n))
@@ -303,7 +303,7 @@ def test_affine_farkas_precheck_host():
 
 def test_unscaled_rel_viol_gate():
     """A converged SDR solution passes the unscaled-coordinate violation
-    gate (ADVICE r4: Ruiz-scaled residuals alone can hide an unscaled
+    gate (Ruiz-scaled residuals alone can hide an unscaled
     violation), and a garbage X fails it."""
     from .test_cd import boolean_ls_form
     form, _, _ = boolean_ls_form(n=8, m=12, seed=3)
@@ -347,7 +347,7 @@ def test_solve_sdp_ns_path():
 
 def test_sdr_batch_acceptance_gate_fallback():
     """Batch instances whose residuals miss the acceptance gate are
-    transparently re-solved on host f64 (VERDICT r4 weak #5: the batch
+    transparently re-solved in f64 (the batch
     path used to return whatever residuals came out)."""
     from .test_cd import boolean_ls_form
     forms = [boolean_ls_form(n=6, m=8, seed=s)[0] for s in (0, 1, 2)]
