@@ -10,8 +10,9 @@ Phases (golden values from BASELINE.md):
      as re-solved in float64), plus the n=100 boolean-LS SDR to tolerance;
   2. the four reference examples' method chains through the QCQP handler;
   3. batched CD at n=100, m=50 through solve_restarts on the routed path,
-     compared with improve_coord_descent_batch on the same starts, and the
-     boolean-LS best of 256 against its brute-force optimum;
+     compared with improve_coord_descent_batch and the percoord path on
+     the same starts, and the boolean-LS best of 256 against its
+     brute-force optimum;
   4. ADMM, CCP and NLP batched through the restart driver, at the bench
      shape and on boolean LS;
   5. the infeasibility pre-check.
@@ -21,7 +22,8 @@ The first output line is each card's name and power limit as
 version and the devices.  Each phase prints one JSON line with its checks,
 its compile time and its steady-state wall time (each timed region ends in
 block_until_ready); the SDRs report whether the float32 device result was
-accepted or re-solved in float64.  The last line is {"ok": true, "device": {...}}; any failed phase exits non-zero.
+accepted or re-solved in float64.  The last line is
+{"ok": true, "device": {...}}; any failed phase exits non-zero.
 The script never falls back to the CPU: it exits non-zero unless JAX's
 default platform is "gpu".  The phase functions take their sizes as
 arguments, and the CPU tests call them at tiny sizes.
@@ -41,6 +43,17 @@ import numpy as np
 
 GOLDEN = {"boolean_ls": 28.750, "maxcut": 57.207, "circle": 5.000,
           "beamforming": 1.970}
+
+# Bench-shape CD quality limits (phase_cd).  Readings over four sets of
+# starts, n=100, m=50, R=10,240, 10 sweeps (H100 80GB HBM3, 400 W): the
+# routed kernel's median violation was 1.289-1.304x
+# improve_coord_descent_batch's and 1.004-1.008x the percoord path's (same
+# bisection), no restart feasible.  The same kernel with TF32 products
+# gave 1.292-1.300x and 1.004-1.010x, so these limits cannot see TF32;
+# tests/test_cd_sweep_pallas.py checks the products' precision instead.
+MED_VS_XLA = 1.35
+MED_VS_PERCOORD = 1.02
+FEAS_MARGIN = 0.02      # 205 of 10,240 restarts; none was feasible there
 
 
 def gpu_info() -> str:
@@ -88,8 +101,9 @@ def counting_f64_resolves():
 
 
 def _timed(fn):
-    """(result, compile_s, steady_s): the first call compiles, the second
-    is the steady-state run."""
+    """(result, compile_s, steady_s): the first call traces, compiles and
+    runs; the second reuses the compiled executables (solve_restarts caches
+    its jitted step) and is the steady-state run."""
     t0 = time.perf_counter()
     _ready(fn())
     t1 = time.perf_counter()
@@ -269,9 +283,18 @@ def _platform(x):
 
 def phase_examples():
     """The reference examples' method chains through the QCQP handler,
-    with the number of their SDRs re-solved in float64."""
+    run twice: the first run compiles, the second is timed as the steady
+    state and its checks are reported; both must pass.  Also the number of
+    their SDRs re-solved in float64."""
     with counting_f64_resolves() as resolves:
+        t0 = time.perf_counter()
+        first = _examples()
+        t1 = time.perf_counter()
         ph = _examples()
+        t2 = time.perf_counter()
+    ph.add_time(t1 - t0, t2 - t1)
+    ph.check("first_run", first.ok,
+             failed=[k for k, v in first.checks.items() if not v["ok"]])
     ph.check("sdr_placement", True, f64_resolves=resolves.count,
              placement="f32 device accepted" if resolves.count == 0
              else f"{resolves.count} re-solved in f64")
@@ -281,7 +304,6 @@ def phase_examples():
 def _examples():
     import qcqp_tpu as qt
     ph = Phase("examples")
-    t0 = time.perf_counter()
 
     # boolean least squares (examples/boolean_least_squares.py)
     np.random.seed(1)
@@ -373,21 +395,24 @@ def _examples():
     f, v = h.improve(qt.COORD_DESCENT, phase1=False)
     ph.check("beamforming_cd_admm_cd", np.isfinite(f)
              and f >= h.sdr_bound - 1e-2, objective=f, violation=v)
-    ph.add_time(time.perf_counter() - t0, 0.0)
     return ph
 
 
 def phase_cd(n=100, m=50, R=10240, sweeps=10, bls_restarts=256,
-             bls_sweeps=50, **cd_kw):
+             bls_sweeps=50, med_vs_xla=MED_VS_XLA, feas_margin=FEAS_MARGIN,
+             **cd_kw):
     """Batched CD through solve_restarts on the routed path; quality on the
-    same starts against improve_coord_descent_batch; boolean-LS best of
+    same starts against improve_coord_descent_batch and the percoord path
+    (limits med_vs_xla, feas_margin, MED_VS_PERCOORD); boolean-LS best of
     bls_restarts against the brute-force optimum.  cd_kw forwards routing
     overrides (the CPU tests pass use_fused=True, interpret=True)."""
     import jax
     import qcqp_tpu as qt
-    from qcqp_tpu.parallel.restarts import (_cd_path, improve_chain,
+    from qcqp_tpu.parallel.restarts import (_paths, improve_chain,
                                             solve_restarts)
     from qcqp_tpu.solvers.coord_descent import improve_coord_descent_batch
+    from qcqp_tpu.solvers.coord_descent_fused import (
+        improve_coord_descent_fused)
     ph = Phase("cd")
     form = bench_form(n, m)
     key = jax.random.PRNGKey(0)
@@ -397,7 +422,7 @@ def phase_cd(n=100, m=50, R=10240, sweeps=10, bls_restarts=256,
     ph.add_time(c, s)
     ph.check("bench_best_finite", np.isfinite(float(f)),
              objective=float(f), violation=float(v),
-             path=_cd_path(form, cd_kw),
+             path=_paths(form, cd_kw)[qt.COORD_DESCENT],
              restarts_per_s=R / s)
 
     xs = jax.random.normal(jax.random.PRNGKey(1), (R, n), form.dtype)
@@ -405,13 +430,20 @@ def phase_cd(n=100, m=50, R=10240, sweeps=10, bls_restarts=256,
                                       num_iters=sweeps, **cd_kw))
     ref = quality(form, improve_coord_descent_batch(form, xs,
                                                     num_iters=sweeps))
-    # statistical parity (identical acceptance rules; trajectories diverge
-    # at ulp-tangencies): the margins of tests/test_cd_sweep_pallas.py
+    pc = quality(form, improve_coord_descent_fused(form, xs, num_iters=sweeps,
+                                                   path="percoord"))
+    # Statistical parity on the same starts (trajectories diverge at
+    # ulp-tangencies).  No restart is feasible after 10 sweeps at the bench
+    # shape, so the median violation carries the comparison; the limits
+    # sit above the spread of four sets of starts (PERF.md).
     ok = (got["finite"]
-          and got["feasible"] >= max(0.2 * ref["feasible"],
-                                     ref["feasible"] - 0.08)
-          and got["median_viol"] <= 2.5 * ref["median_viol"] + 1e-2)
-    ph.check("bench_quality_vs_xla", ok, routed=got, xla_batch=ref)
+          and got["feasible"] >= ref["feasible"] - feas_margin
+          and got["median_viol"] <= med_vs_xla * ref["median_viol"]
+          and got["median_viol"] <= MED_VS_PERCOORD * pc["median_viol"])
+    ph.check("bench_quality", ok, routed=got, xla_batch=ref, percoord=pc,
+             med_vs_xla=got["median_viol"] / max(ref["median_viol"], 1e-30),
+             med_vs_percoord=got["median_viol"]
+             / max(pc["median_viol"], 1e-30))
 
     bls, brute = boolean_ls_form()
     _, f, v = solve_restarts(bls, bls_restarts, jax.random.PRNGKey(0),
@@ -423,38 +455,37 @@ def phase_cd(n=100, m=50, R=10240, sweeps=10, bls_restarts=256,
     return ph
 
 
-def phase_improve(n=100, m=50, R_admm=1024, R_b=128, admm_iters=50):
-    """ADMM, CCP and NLP through the restart driver (XLA paths)."""
+def phase_improve(n=100, m=50, R_admm=1024, R_b=128, admm_iters=50,
+                  **route_kw):
+    """ADMM, CCP and NLP through solve_restarts on their routed paths.
+    route_kw forwards routing overrides (the CPU tests pass use_fused=True
+    for the GPU's ADMM path)."""
     import jax
     import qcqp_tpu as qt
     from qcqp_tpu.core import max_violation
-    from qcqp_tpu.parallel.restarts import improve_chain, solve_restarts
+    from qcqp_tpu.parallel.restarts import (_paths, improve_chain,
+                                            solve_restarts)
     ph = Phase("improve")
     bls, brute = boolean_ls_form()
 
-    # ADMM bucket on the reference example's chain (CD, then ADMM without
-    # phase 1).  From random starts, consensus-ADMM phase 1 limit-cycles on
-    # x_i^2 = 1 (the sign of z_i + u_i flips every iteration) in float32
-    # and float64 alike; that best violation is reported, not gated.
+    # ADMM bucket: best violation of 128 random starts after 300 iterations
     viol = jax.vmap(lambda x: max_violation(bls, x))
     xs = jax.random.normal(jax.random.PRNGKey(1), (128, bls.n), bls.dtype)
-    p1 = float(np.min(viol(improve_chain(bls, xs, qt.ADMM, num_iters=300))))
-    x_cd = improve_chain(bls, xs, qt.COORD_DESCENT, num_iters=50)
-    out = improve_chain(bls, x_cd, qt.ADMM, num_iters=300, phase1=False)
+    out = improve_chain(bls, xs, qt.ADMM, num_iters=300, **route_kw)
     vio = np.asarray(viol(out))
     ph.check("admm_boolean_ls", vio.min() < 1e-2,
-             best_violation=float(vio.min()), phase1_from_random=p1,
-             **quality(bls, out))
+             best_violation=float(vio.min()),
+             path=_paths(bls, route_kw)[qt.ADMM], **quality(bls, out))
 
     xs = jax.random.normal(jax.random.PRNGKey(5), (64, bls.n), bls.dtype)
-    qc = quality(bls, improve_chain(bls, xs, qt.DCCP))
+    qc = quality(bls, improve_chain(bls, xs, qt.DCCP, **route_kw))
     ph.check("ccp_boolean_ls", qc["feasible"] >= 0.9
              and qc["best_obj"] <= 1.35 * brute, brute_force=brute, **qc)
 
     form = bench_form(n, m)
     xs = jax.random.normal(jax.random.PRNGKey(3), (R_b, n), form.dtype)
     viol = jax.vmap(lambda x: max_violation(form, x))
-    out = improve_chain(form, xs, qt.IPOPT)
+    out = improve_chain(form, xs, qt.IPOPT, **route_kw)
     v0, v1 = np.asarray(viol(xs)), np.asarray(viol(out))
     # rounding of the f32 violation evaluation itself
     slack = 4 * np.finfo(np.float32).eps * np.maximum(1.0, v0)
@@ -465,7 +496,8 @@ def phase_improve(n=100, m=50, R_admm=1024, R_b=128, admm_iters=50):
     key = jax.random.PRNGKey(0)
     for method, R, kw in ((qt.ADMM, R_admm, {"num_iters": admm_iters}),
                           (qt.DCCP, R_b, {}), (qt.IPOPT, R_b, {})):
-        run = lambda: solve_restarts(form, R, key, improve=method, **kw)
+        run = lambda: solve_restarts(form, R, key, improve=method, **kw,
+                                     **route_kw)
         (x, f, v), c, s = _timed(run)
         ph.add_time(c, s)
         ph.check(f"{method}_bench", np.isfinite(float(f))

@@ -17,6 +17,7 @@ deterministic across shardings (ties broken by lowest restart index).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Union
 
 import jax
@@ -86,25 +87,22 @@ def suggest_batch(form: QCQPForm, num: int, key: jax.Array,
     raise ValueError(f"Unknown suggest method: {method}")
 
 
-def _cd_path(form: QCQPForm, kwargs) -> str:
-    """CD path: `cd_path` if given (solve_restarts decides it once, where
-    the form is concrete), else the router's choice.  use_fused=False
-    forces the XLA path; use_fused=True forces the float32 path the GPU
-    would take (tests use it with interpret=True to run the kernel on the
-    CPU)."""
-    if "cd_path" in kwargs:
-        return kwargs["cd_path"]
-    use_fused = kwargs.get("use_fused", None)
-    if use_fused is False:
-        return routing.XLA
+def _paths(form: QCQPForm, kwargs) -> dict:
+    """Improve paths: `paths` if given (solve_restarts decides them once,
+    where the form is concrete), else the router's choice.  use_fused=False
+    forces the CPU's paths (XLA, the reference's semantics); use_fused=True
+    forces the paths of a float32 problem on the GPU (tests use it with
+    interpret=True to run the kernel on the CPU)."""
+    if "paths" in kwargs:
+        return dict(kwargs["paths"])
     from ..solvers.coord_descent_fused import static_eq_idx
     eq_static = (kwargs.get("eq_idx", None) is not None
                  or static_eq_idx(form) is not None)
     platform, dtype = jax.default_backend(), form.dtype
-    if use_fused:
-        platform, dtype = "gpu", jnp.float32
-    return routing.improve_paths(platform, dtype, form.n, form.m,
-                                 eq_static)[s.COORD_DESCENT]
+    use_fused = kwargs.get("use_fused", None)
+    if use_fused is not None:
+        platform, dtype = ("gpu", jnp.float32) if use_fused else ("cpu", dtype)
+    return routing.improve_paths(platform, dtype, form.n, form.m, eq_static)
 
 
 def improve_chain(form: QCQPForm, xs: jax.Array,
@@ -117,9 +115,10 @@ def improve_chain(form: QCQPForm, xs: jax.Array,
     if isinstance(methods, str):
         methods = [methods]
     eigh = None
+    paths = _paths(form, kwargs)
     for method in methods:
+        path = paths.get(method)
         if method == s.COORD_DESCENT:
-            path = _cd_path(form, kwargs)
             if path == routing.XLA:
                 # batched (not vmap of the single-restart improve): vmapping
                 # its phase-2 lax.cond broadcasts form.P per restart
@@ -158,7 +157,7 @@ def improve_chain(form: QCQPForm, xs: jax.Array,
                 viol_lim=kwargs.get("viol_lim", 1e4),
                 tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
                 phase1=kwargs.get("phase1", True),
-                eigh=eigh)
+                eigh=eigh, proj_trips=routing.admm_proj_trips(path))
             xs = jax.vmap(fn)(xs)
         elif method == s.DCCP:
             from ..solvers.ccp import improve_ccp
@@ -219,44 +218,69 @@ def solve_restarts(form: QCQPForm, num_restarts: int, key: jax.Array,
     # pad restarts to a multiple of the device count
     num_padded = -(-num_restarts // ndev) * ndev
 
-    # The CD path is decided here, where the form is still concrete (the
+    # The paths are decided here, where the form is still concrete (the
     # static equality pattern is lifted for the kernel); single device AND
     # mesh runs (the mesh path maps the kernel per shard via shard_map).
     from ..solvers.coord_descent_fused import static_eq_idx
     if kwargs.get("eq_idx", None) is None:
         kwargs["eq_idx"] = static_eq_idx(form)
-    kwargs["cd_path"] = _cd_path(form, kwargs)
+    kwargs["paths"] = _paths(form, kwargs)
+    # array-valued options (rho) are traced arguments; the rest are part of
+    # the compiled step's cache key
+    dyn = {k: v for k, v in kwargs.items()
+           if isinstance(v, (jax.Array, np.ndarray))}
+    static = tuple(sorted((k, _freeze(v)) for k, v in kwargs.items()
+                          if k not in dyn))
+    improve = improve if isinstance(improve, str) else tuple(improve)
+    fn = _restart_step(num_padded, suggest, improve, mesh, better_tol, static)
+    return fn(form, key, sdr_sampler, spectral_sol, dyn)
 
+
+def _freeze(v):
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, list):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+@functools.lru_cache(maxsize=64)
+def _restart_step(num_padded, suggest, improve, mesh, better_tol, static):
+    """The jitted suggest -> improve -> best-point step of solve_restarts,
+    built once per configuration so that a repeated call with the same
+    shapes runs the compiled executable instead of tracing again."""
+    kwargs = dict(static)
+    kwargs["paths"] = dict(kwargs["paths"])
     if mesh is not None:
         axis = list(mesh.shape.keys())[0]
         restart_sharding = NamedSharding(mesh, P(axis))
         replicated = NamedSharding(mesh, P())
 
-    def step(form, key):
+    def step(form, key, sdr_sampler, spectral_sol, dyn):
+        kw = dict(kwargs, **dyn)
         xs = suggest_batch(form, num_padded, key, suggest,
                            sdr_sampler=sdr_sampler, spectral_sol=spectral_sol)
         if mesh is not None:
             # Shard the restart axis; the best_point reduction then lowers to
             # cross-device collectives.
             xs = jax.lax.with_sharding_constraint(xs, restart_sharding)
-        if mesh is not None and kwargs["cd_path"] == routing.KERNEL:
+        if (mesh is not None
+                and kw["paths"][s.COORD_DESCENT] == routing.KERNEL):
             # pallas_call has no SPMD partitioning rule, so the kernel is
             # mapped per shard: each device runs its own pallas_call on its
             # local restarts (restarts are independent; no collectives
             # inside the chain).
             from jax import shard_map
-            local = lambda f, xs_l: improve_chain(f, xs_l, improve, **kwargs)
+            local = lambda f, xs_l: improve_chain(f, xs_l, improve, **kw)
             # check_vma=False: pallas_call out_shapes carry no varying-mesh
             # annotation, so the vma checker rejects them.
             xs = shard_map(local, mesh=mesh,
                            in_specs=(P(), P(axis)),
                            out_specs=P(axis), check_vma=False)(form, xs)
         else:
-            xs = improve_chain(form, xs, improve, **kwargs)
+            xs = improve_chain(form, xs, improve, **kw)
         return best_point(form, xs, better_tol)
 
     if mesh is None:
-        return jax.jit(step)(form, key)
-
-    fn = jax.jit(step, out_shardings=(replicated, replicated, replicated))
-    return fn(form, key)
+        return jax.jit(step)
+    return jax.jit(step, out_shardings=(replicated, replicated, replicated))

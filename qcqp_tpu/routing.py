@@ -17,6 +17,7 @@ from . import settings as s
 XLA = "xla"            # the plain XLA paths (solvers/*.py)
 KERNEL = "kernel"      # two-phase CD sweep kernel (kernels/cd_sweep_pallas.py)
 PERCOORD = "percoord"  # batched per-coordinate CD (solvers/coord_descent_fused)
+NEWTON = "newton"      # XLA ADMM with fixed-trip Newton projections
 
 # The sweep kernel keeps (block_r, n_p) and (block_r, k_p) tiles in
 # registers, with n and m+1 padded to powers of two.
@@ -40,13 +41,27 @@ def default_dtype(platform: str):
 
 def improve_paths(platform: str, dtype, n: int, m: int,
                   eq_static: bool) -> dict:
-    """The path of each improve method for one problem on one platform."""
+    """The path of each improve method for one problem on one platform.
+
+    The CPU keeps the reference's semantics everywhere (ADMM projections
+    bisected to 1e-6).  The GPU's batched ADMM projects with a few Newton
+    trips, which damps the consensus overshoot that makes exact projections
+    limit-cycle from random starts (kernels/projection.py).
+    """
     _check(platform)
-    cd = XLA
-    if platform == "gpu" and jnp.dtype(dtype) == jnp.float32:
-        fits = n <= KERNEL_MAX_N and m + 1 <= KERNEL_MAX_ROWS
-        cd = KERNEL if fits and eq_static else PERCOORD
-    return {s.COORD_DESCENT: cd, s.ADMM: XLA, s.DCCP: XLA, s.IPOPT: XLA}
+    cd, admm = XLA, XLA
+    if platform == "gpu":
+        admm = NEWTON
+        if jnp.dtype(dtype) == jnp.float32:
+            fits = n <= KERNEL_MAX_N and m + 1 <= KERNEL_MAX_ROWS
+            cd = KERNEL if fits and eq_static else PERCOORD
+    return {s.COORD_DESCENT: cd, s.ADMM: admm, s.DCCP: XLA, s.IPOPT: XLA}
+
+
+def admm_proj_trips(path: str):
+    """improve_admm's proj_trips for an ADMM path (None: bisection)."""
+    from .kernels.projection import NEWTON_TRIPS
+    return NEWTON_TRIPS if path == NEWTON else None
 
 
 def form_paths(form, platform: str = None) -> dict:

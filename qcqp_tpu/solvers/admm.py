@@ -23,17 +23,24 @@ import jax
 import jax.numpy as jnp
 
 from ..core import QCQPForm, better, max_violation
-from ..kernels.projection import ConstraintEigh, precompute_eigh, project_onecons
+from ..kernels.projection import (ConstraintEigh, precompute_eigh,
+                                  project_onecons, project_onecons_newton)
 
 
-def _project_batch(vs, eigh: ConstraintEigh, r, is_eq, tol):
-    return jax.vmap(
-        lambda v, lam, Q, qhat, ri, ei: project_onecons(v, lam, Q, qhat, ri, ei, tol)
-    )(vs, eigh.lam, eigh.Q, eigh.qhat, r, is_eq)
+def _project_batch(vs, eigh: ConstraintEigh, r, is_eq, tol, trips=None):
+    """The m projections: bisection to `tol` (the reference's), or `trips`
+    fixed safeguarded Newton trips when trips is not None."""
+    if trips is None:
+        proj = lambda v, lam, Q, qhat, ri, ei: project_onecons(
+            v, lam, Q, qhat, ri, ei, tol)
+    else:
+        proj = lambda v, lam, Q, qhat, ri, ei: project_onecons_newton(
+            v, lam, Q, qhat, ri, ei, trips)
+    return jax.vmap(proj)(vs, eigh.lam, eigh.Q, eigh.qhat, r, is_eq)
 
 
 def admm_phase1(form: QCQPForm, eigh: ConstraintEigh, x0, tol=1e-2, num_iters=1000,
-                proj_tol=1e-6):
+                proj_tol=1e-6, proj_trips=None):
     """Feasibility consensus (reference: qcqp/qcqp.py:195-212)."""
     m = form.m
     xs0 = jnp.broadcast_to(x0, (m, form.n))
@@ -47,7 +54,7 @@ def admm_phase1(form: QCQPForm, eigh: ConstraintEigh, x0, tol=1e-2, num_iters=10
     def body(carry):
         z, xs, us, t = carry
         z = (jnp.sum(xs, 0) - jnp.sum(us, 0)) / m
-        xs = _project_batch(z + us, eigh, rcon, eqcon, proj_tol)
+        xs = _project_batch(z + us, eigh, rcon, eqcon, proj_tol, proj_trips)
         us = us + z - xs
         return z, xs, us, t + 1
 
@@ -56,7 +63,8 @@ def admm_phase1(form: QCQPForm, eigh: ConstraintEigh, x0, tol=1e-2, num_iters=10
 
 
 def admm_phase2(form: QCQPForm, eigh: ConstraintEigh, x0, rho, tol=1e-2,
-                num_iters=1000, viol_lim=1e4, proj_tol=1e-6, better_tol=1e-4):
+                num_iters=1000, viol_lim=1e4, proj_tol=1e-6, better_tol=1e-4,
+                proj_trips=None):
     """Objective consensus (reference: qcqp/qcqp.py:215-251).
 
     Iteration-ordering parity notes: the convergence / divergence breaks fire
@@ -80,7 +88,7 @@ def admm_phase2(form: QCQPForm, eigh: ConstraintEigh, x0, rho, tol=1e-2,
         z, xs, us, last_z, bestx, t, done = carry
         rhs = 2.0 * rho * (jnp.sum(xs, 0) - jnp.sum(us, 0)) - q0
         z = jax.scipy.linalg.cho_solve(chol, rhs)
-        xs = _project_batch(z + us, eigh, rcon, eqcon, proj_tol)
+        xs = _project_batch(z + us, eigh, rcon, eqcon, proj_tol, proj_trips)
         us = us + z - xs
 
         converged = (t > 0) & (jnp.linalg.norm(last_z - z) < tol)
@@ -123,13 +131,17 @@ def min_valid_rho(form: QCQPForm):
     return -lmb_min / form.m
 
 
-@partial(jax.jit, static_argnames=("num_iters", "viol_lim", "tol", "phase1"))
+@partial(jax.jit, static_argnames=("num_iters", "viol_lim", "tol", "phase1",
+                                   "proj_trips"))
 def improve_admm(form: QCQPForm, x0, rho=None, num_iters=1000, viol_lim=1e4,
-                 tol=1e-2, phase1=True, eigh: Optional[ConstraintEigh] = None):
+                 tol=1e-2, phase1=True, eigh: Optional[ConstraintEigh] = None,
+                 proj_trips=None):
     """Full ADMM improve (reference: qcqp/qcqp.py:254-285).
 
     rho validation against min_valid_rho is the caller's (api layer's) job —
     it raises host-side, which has no place inside a jitted loop.
+    proj_trips=None projects by bisection to 1e-6 (the reference); an int
+    projects with that many Newton trips (routing.admm_proj_trips).
     """
     if form.m == 0:                      # static shape property
         return _unconstrained_improve(form, x0)
@@ -138,16 +150,19 @@ def improve_admm(form: QCQPForm, x0, rho=None, num_iters=1000, viol_lim=1e4,
     if rho is None:
         rho = auto_rho(form)
     if phase1:
-        x1 = better(form, x0, admm_phase1(form, eigh, x0, tol, num_iters))
+        x1 = better(form, x0, admm_phase1(form, eigh, x0, tol, num_iters,
+                                          proj_trips=proj_trips))
     else:
         x1 = x0
-    x2 = better(form, x1, admm_phase2(form, eigh, x1, rho, tol, num_iters, viol_lim))
+    x2 = better(form, x1, admm_phase2(form, eigh, x1, rho, tol, num_iters,
+                                      viol_lim, proj_trips=proj_trips))
     return x2
 
 
-@partial(jax.jit, static_argnames=("num_iters", "viol_lim", "tol", "phase1"))
+@partial(jax.jit, static_argnames=("num_iters", "viol_lim", "tol", "phase1",
+                                   "proj_trips"))
 def improve_admm_batch(form: QCQPForm, xs, rho=None, num_iters=1000, viol_lim=1e4,
-                       tol=1e-2, phase1=True):
+                       tol=1e-2, phase1=True, proj_trips=None):
     """vmap over a leading restart axis; the eigh precompute is shared."""
     if form.m == 0:
         return jax.vmap(lambda x: _unconstrained_improve(form, x))(xs)
@@ -155,5 +170,6 @@ def improve_admm_batch(form: QCQPForm, xs, rho=None, num_iters=1000, viol_lim=1e
     if rho is None:
         rho = auto_rho(form)
     return jax.vmap(
-        lambda x: improve_admm(form, x, rho, num_iters, viol_lim, tol, phase1, eigh=eigh)
+        lambda x: improve_admm(form, x, rho, num_iters, viol_lim, tol, phase1,
+                               eigh=eigh, proj_trips=proj_trips)
     )(xs)

@@ -206,6 +206,45 @@ def test_kernel_lowers_for_cuda(n, m, phase1):
     assert "xla.gpu.triton" in lowered.as_text()
 
 
+def _kernel_dot_precisions(phase1):
+    """The precision of every dot_general inside the kernel's body."""
+    n, m = 7, 3
+    args = (jnp.zeros((m + 1, n, n), jnp.float32),
+            jnp.zeros((m + 1, n), jnp.float32),
+            jnp.zeros((m + 1,), jnp.float32), jnp.zeros((40, n), jnp.float32))
+    f = lambda P, q, r, xs: two_phase_sweeps(P, q, r, (0,), xs, num_iters=3,
+                                             phase1=phase1)
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for v in eqn.params.values():
+                for sub in (v if isinstance(v, (list, tuple)) else (v,)):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        walk(inner)
+
+    walk(jax.make_jaxpr(f)(*args).jaxpr)
+    return found
+
+
+@pytest.mark.parametrize("phase1", [True, False])
+def test_kernel_products_are_ieee_float32(phase1, monkeypatch):
+    """Every product in the kernel asks for HIGHEST on both operands, which
+    the Pallas->Triton lowering turns into IEEE float32 dots (DEFAULT or
+    HIGH would be TF32).  The bench-shape quality gate cannot tell TF32
+    apart, so the precision is checked here; the control shows the check
+    sees a TF32 product."""
+    from qcqp_tpu.kernels import cd_sweep_pallas as ks
+    hi = jax.lax.Precision.HIGHEST
+    precs = _kernel_dot_precisions(phase1)
+    assert precs and all(p == (hi, hi) for p in precs), precs
+    monkeypatch.setattr(ks, "_HP", jax.lax.Precision.DEFAULT)
+    assert any(p != (hi, hi) for p in _kernel_dot_precisions(phase1))
+
+
 def test_padding_leaves_x_unchanged():
     """Zero coordinates and zero constraint rows are inert: phase 1 on a
     problem padded with them by hand gives the same real coordinates and

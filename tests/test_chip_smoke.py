@@ -12,6 +12,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 KERNEL = dict(use_fused=True, interpret=True)
+# At a few dozen restarts the kernel-vs-XLA comparison is chaotic; tiny
+# runs hold it to the per-instance margins of tests/test_cd_sweep_pallas.py,
+# not to the bench-shape limits (the percoord limit holds at every size).
+TINY_CD = dict(bls_restarts=32, bls_sweeps=20, med_vs_xla=2.5,
+               feas_margin=0.08)
 
 
 def _ok(phase):
@@ -24,9 +29,10 @@ def _ok(phase):
 @pytest.mark.parametrize("name,run", [
     ("sdr", lambda: cs.phase_sdr(n_big=12, max_iters=2000)),
     ("examples", cs.phase_examples),
-    ("cd", lambda: cs.phase_cd(n=12, m=7, R=64, sweeps=3, bls_restarts=32,
-                               bls_sweeps=20, **KERNEL)),
-    ("improve", lambda: cs.phase_improve(n=12, m=7, R_admm=32, R_b=16)),
+    ("cd", lambda: cs.phase_cd(n=12, m=7, R=64, sweeps=3, **TINY_CD,
+                               **KERNEL)),
+    ("improve", lambda: cs.phase_improve(n=12, m=7, R_admm=32, R_b=16,
+                                         use_fused=True)),
     ("four", lambda: cs.phase_four(jax.devices()[:4], n=12, m=7, R=64,
                                    sweeps=3, **KERNEL)),
 ])
@@ -39,8 +45,8 @@ def test_cd_phase_routes_to_the_kernel_on_gpu(monkeypatch):
     """With the router seeing a GPU, the CD phase takes the sweep kernel
     without any override (interpreted here)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
-    line = _ok(cs.phase_cd(n=8, m=5, R=32, sweeps=2, bls_restarts=32,
-                           bls_sweeps=20, interpret=True))
+    line = _ok(cs.phase_cd(n=8, m=5, R=32, sweeps=2, interpret=True,
+                           **TINY_CD))
     assert line["checks"]["bench_best_finite"]["path"] == "kernel"
 
 

@@ -129,6 +129,55 @@ def test_fused_sharded_padding_edges(monkeypatch):
         assert np.isfinite(float(f))
 
 
+def _count_chain_traces(monkeypatch):
+    from qcqp_tpu.parallel import restarts as rmod
+    traces = []
+    orig = rmod.improve_chain
+
+    def spy(*a, **k):
+        traces.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(rmod, "improve_chain", spy)
+    rmod._restart_step.cache_clear()
+    return traces
+
+
+def test_solve_restarts_reuses_its_compiled_step(monkeypatch):
+    """A repeated call with the same configuration runs the cached jitted
+    step (the improve chain is traced once); a new option builds a new
+    step; results do not depend on the cache."""
+    traces = _count_chain_traces(monkeypatch)
+    form, _, _ = boolean_ls_form(n=5, m=6, seed=11)
+    x1, f1, _ = solve_restarts(form, 24, jax.random.PRNGKey(0), num_iters=7)
+    solve_restarts(form, 24, jax.random.PRNGKey(1), num_iters=7)
+    assert len(traces) == 1
+    solve_restarts(form, 24, jax.random.PRNGKey(0), num_iters=8)
+    assert len(traces) == 2
+    x3, f3, _ = solve_restarts(form, 24, jax.random.PRNGKey(0), num_iters=7)
+    assert len(traces) == 2
+    np.testing.assert_array_equal(np.asarray(x1), np.asarray(x3))
+    assert float(f1) == float(f3)
+
+
+def test_solve_restarts_array_option_is_traced(monkeypatch):
+    """An array-valued option (rho) is an argument of the cached step, so
+    a new value reuses it and still takes effect."""
+    import qcqp_tpu as qt
+    traces = _count_chain_traces(monkeypatch)
+    form, _, _ = boolean_ls_form(n=5, m=6, seed=12)
+    kw = dict(improve=qt.ADMM, num_iters=3, phase1=False)
+    key = jax.random.PRNGKey(0)
+    a = solve_restarts(form, 8, key, rho=jnp.asarray(2.0), **kw)
+    b = solve_restarts(form, 8, key, rho=jnp.asarray(9.0), **kw)
+    assert len(traces) == 1
+    assert not np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
+    for rho, got in ((2.0, a), (9.0, b)):      # same as a static rho
+        ref = solve_restarts(form, 8, key, rho=rho, **kw)
+        np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                                   atol=1e-12)
+
+
 def test_improve_chain_forwards_stage_kwargs(monkeypatch):
     """Chained improve forwards the filtered kwargs to the DCCP and IPOPT
     stages like QCQP._improve_one does."""

@@ -87,3 +87,52 @@ def test_batched_matches_single():
                             np.asarray(form.q[i + 1]), float(form.r[i + 1]),
                             bool(form.is_eq[i]))
         np.testing.assert_allclose(out[i], single, atol=1e-8)
+
+
+# -- fixed-trip Newton projection (the GPU's batched ADMM path) -------------
+
+def run_newton(z, P, q, r, is_eq, trips):
+    from qcqp_tpu.kernels.projection import project_onecons_newton
+    P = 0.5 * (P + P.T)
+    lam, Q = np.linalg.eigh(P)
+    return np.asarray(project_onecons_newton(
+        jnp.asarray(z), jnp.asarray(lam), jnp.asarray(Q),
+        jnp.asarray(Q.T @ q), jnp.asarray(r), jnp.asarray(is_eq),
+        trips=trips))
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("is_eq", [False, True])
+def test_newton_converges_to_the_bisection_projection(seed, is_eq):
+    """Given enough trips, the safeguarded Newton solve reaches the same
+    secular root as the bisection."""
+    rng = np.random.default_rng(100 + seed)
+    n = 5
+    A = rng.standard_normal((n, n))
+    P = 0.5 * (A + A.T)
+    q = rng.standard_normal(n)
+    r = rng.standard_normal()
+    z = rng.standard_normal(n)
+    x_b = run_kernel(z, P, q, r, is_eq)
+    x_n = run_newton(z, P, q, r, is_eq, trips=60)
+    np.testing.assert_allclose(x_n, x_b, atol=1e-5)
+
+
+@pytest.mark.parametrize("z,expect", [(0.3, 1.0), (-0.3, -1.0), (2.5, 1.0)])
+def test_newton_boolean_coordinate(z, expect):
+    x = run_newton(np.array([z]), np.array([[1.0]]), np.array([0.0]), -1.0,
+                   True, trips=30)
+    np.testing.assert_allclose(x, [expect], atol=1e-6)
+
+
+def test_newton_fast_path_and_few_trips_stay_finite():
+    """A feasible inequality start is returned as is; six trips from far
+    away give a finite point on the segment towards the set."""
+    n = 5
+    z = np.full(n, 0.1)
+    np.testing.assert_array_equal(
+        run_newton(z, np.eye(n), np.zeros(n), -1.0, False, trips=6), z)
+    z = np.full(n, 40.0)
+    x = run_newton(z, np.eye(n), np.zeros(n), -1.0, True, trips=6)
+    assert np.isfinite(x).all()
+    assert np.linalg.norm(x) < np.linalg.norm(z)

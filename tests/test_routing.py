@@ -15,7 +15,7 @@ from qcqp_tpu import routing
 from qcqp_tpu.solvers import sdp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-K, P, X = routing.KERNEL, routing.PERCOORD, routing.XLA
+K, P, X, NW = routing.KERNEL, routing.PERCOORD, routing.XLA, routing.NEWTON
 
 
 @pytest.mark.parametrize("platform,dtype,n,m,eq_static,cd", [
@@ -32,8 +32,14 @@ K, P, X = routing.KERNEL, routing.PERCOORD, routing.XLA
 ])
 def test_improve_paths(platform, dtype, n, m, eq_static, cd):
     paths = routing.improve_paths(platform, dtype, n, m, eq_static)
-    assert paths == {qt.COORD_DESCENT: cd, qt.ADMM: X, qt.DCCP: X,
+    admm = NW if platform == "gpu" else X
+    assert paths == {qt.COORD_DESCENT: cd, qt.ADMM: admm, qt.DCCP: X,
                      qt.IPOPT: X}
+
+
+@pytest.mark.parametrize("path,trips", [(X, None), (NW, 6)])
+def test_admm_proj_trips(path, trips):
+    assert routing.admm_proj_trips(path) == trips
 
 
 @pytest.mark.parametrize("platform", ["rocm", "metal", ""])
